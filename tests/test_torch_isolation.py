@@ -1,0 +1,155 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+its entry points refuse to fall back to the CPU, its kernel build refuses
+to fall back when the CUDA compiler is missing, and its own copies of the
+reference's numpy-only modules (config presets, the simulator, the metrics)
+give what the reference's give."""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from liwslam import config as jconfig
+from liwslam.eval import metrics as jmetrics
+from liwslam.sim import world as jsim
+from liwslam_torch import config as tconfig
+from liwslam_torch.eval import metrics as tmetrics
+from liwslam_torch.sim import world as tsim
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "liwslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted((ROOT / "liwslam_torch").rglob("*.py"))
+    ]
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'liwslam'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module",
+            "__import__",
+        ):
+            roots |= {a.value.split(".")[0] for a in node.args if isinstance(a, ast.Constant)}
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_reference(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "liwslam"}
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
+    from liwslam_torch.frontend.driver import Frontend
+    from liwslam_torch.ops import extract
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prm = tconfig.office()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Frontend(prm)
+    assert Frontend(prm, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Frontend(prm.replace(enable_camera=True), device="cpu")
+    # a wrapper takes its plain version only for CPU tensors; anything else
+    # that is not a CUDA float32 tensor is refused, not computed
+    pts = torch.zeros((8, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        extract.extract_lines(
+            pts, torch.ones(8, dtype=torch.bool, device="meta"), continuous_threshold=0.1,
+            min_len=0.1, max_dis=0.1, tolerance_angle_rad=0.1, max_lines=4,
+        )
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from liwslam_torch.ops import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "CUDA_ROOTS", (str(tmp_path),))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load()
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("preset", ["base", "office", "corridor", "cafe", "market"])
+def test_config_presets_match_reference(preset):
+    j, t = getattr(jconfig, preset)(), getattr(tconfig, preset)()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    np.testing.assert_array_equal(t.mat_T_imu_to_laser(), j.mat_T_imu_to_laser())
+    np.testing.assert_array_equal(t.mat_T_imu_to_wheel(), j.mat_T_imu_to_wheel())
+
+
+def test_simulator_and_metrics_match_reference():
+    kw = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, noise=True, seed=3)
+    j = jsim.simulate(jsim.default_track("L"), jsim.square_room(obstacles=True), jconfig.office(), **kw)
+    t = tsim.simulate(tsim.default_track("L"), tsim.square_room(obstacles=True), tconfig.office(), **kw)
+    fields = [f.name for f in dataclasses.fields(j)]
+    assert fields == [f.name for f in dataclasses.fields(t)]
+    for name in fields:
+        a, b = getattr(j, name), getattr(t, name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(b, a, err_msg=name)
+    pairs = tmetrics.associate_by_time(t.laser_t_us, t.gt_t_us)
+    np.testing.assert_array_equal(pairs, jmetrics.associate_by_time(j.laser_t_us, j.gt_t_us))
+    est = t.gt_T_w_imu[pairs[:, 1]].copy()
+    est[:, :2, 3] += np.random.default_rng(0).normal(0, 0.01, (len(est), 2))
+    for align in (False, True):
+        assert tmetrics.ate_rmse(est, t.gt_T_w_imu[pairs[:, 1]], align=align) == pytest.approx(
+            jmetrics.ate_rmse(est, j.gt_T_w_imu[pairs[:, 1]], align=align), rel=1e-9
+        )
+
+
+def test_build_is_keyed_by_source_hash(monkeypatch, tmp_path):
+    from liwslam_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    monkeypatch.setattr(_build, "CSRC", str(src))
+    (src / "k.cu").write_text("// one\n")
+    first = _build._lib_path("k")
+    assert first == _build._lib_path("k")
+    (src / "k.cu").write_text("// two\n")
+    assert _build._lib_path("k") != first
+    assert set(_build.SOURCES) == {p.stem for p in (ROOT / "liwslam_torch" / "csrc").glob("*.cu")}
+
+
+def test_solve_wrapper_runs_the_plain_version_only_on_the_cpu():
+    from liwslam_torch.ops import track_solve
+
+    B, M = 1, 4
+    shapes = dict(
+        x0=(B, 30), free=(B, 30), imu_J=(B, 15, 15), imu_sqrtP=(B, 15, 15), imu_X=(B, 15),
+        prior_J=(B, 15, 15), prior_X=(B, 15), T_il=(B, 4, 4), T_iw=(B, 4, 4), wheel=(B, 9),
+        scal=(B, 6), laser=(B, M, 11),
+    )
+    inp = track_solve.TrackSolveInputs(**{k: torch.zeros(s, device="meta") for k, s in shapes.items()})
+    with pytest.raises(ValueError, match="CUDA"):
+        track_solve.lm_solve_track_batched(inp)

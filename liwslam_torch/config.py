@@ -136,7 +136,7 @@ class Params:
     max_imu_per_frame: int = 64  # IMU samples between consecutive frames
     max_wheel_per_frame: int = 64
     map_corner_capacity: int = 128  # corners per loop descriptor map
-    # camera path capacities/knobs (enable_camera; not ported yet)
+    # camera path capacities/knobs (enable_camera)
     cam_feature_capacity: int = 64  # landmark/track slots F
     cam_obs_window: int = 10  # observation ring length Wc
     cam_min_obs: int = 5  # obs needed before triangulation (camera_manager.cpp:179)

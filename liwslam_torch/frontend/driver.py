@@ -12,22 +12,32 @@ Port of the laser path of ``liwslam/frontend/driver.py``:
 - tracking: ``pipeline.tracking_step`` per frame, chunks of frames moved to
   and from the device at once.
 
-The camera path (``enable_camera``) is not ported yet (ROADMAP queue A,
-item 12).  One difference from the reference package: each init-window
-interval is integrated with ``preintegration.imu_interval_parallel`` (as
-the tracking step does) where the reference package runs the per-sample
-recursion; the two agree up to float reassociation.
+With ``enable_camera`` the first camera message after each laser frame is
+a window frame of its own (``frontend/camera_pipeline``), in the init
+window too; the camera images stay in the caller's one array and are
+staged to the device per chunk (``Frontend.stage``), never copied into
+each packed frame.
+
+One difference from the reference package: each init-window interval is
+integrated with ``preintegration.imu_interval_parallel`` (as the tracking
+step does) where the reference package runs the per-sample recursion; the
+two agree up to float reassociation, because the packer keeps every
+interval's samples a valid prefix (``_split_frame`` moves the samples
+after a camera stamp to the front).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from liwslam_torch import resolve_device
+from liwslam_torch.camera import features as ft
 from liwslam_torch.core import geometry as geo
+from liwslam_torch.frontend import camera_pipeline as cpl
 from liwslam_torch.frontend import matching as mm
 from liwslam_torch.frontend import pipeline as pl
 from liwslam_torch.frontend import preintegration as pre
@@ -51,6 +61,13 @@ class FrontendResult:
     kf_corners: list  # per keyframe: (k,3) world-frame corner arrays
     kf_indices: np.ndarray  # frame indices of keyframes
     kf_scans: list  # per keyframe: (p1, p2) line arrays (laser frame)
+    # accepted camera frames (enable_camera only; empty otherwise), the
+    # init window's first, in time order
+    cam_t_us: np.ndarray = None  # (C,) stamps
+    cam_p: np.ndarray = None  # (C,3) camera-frame-time IMU poses
+    cam_q: np.ndarray = None  # (C,3)
+    cam_n_tracked: np.ndarray = None  # (C,)
+    cam_n_ready: np.ndarray = None  # (C,)
 
     def T_w_imu(self):
         return geo.make_tf(torch.as_tensor(self.p), torch.as_tensor(self.q)).numpy()
@@ -77,6 +94,16 @@ def clean_scan(points, valid, min_range=0.1, min_spacing=0.01):
     return pts, ok
 
 
+class PackedCam(NamedTuple):
+    """One laser interval with its camera messages, packed on the host; the
+    images are indices into the stream's image array (-1: none)."""
+
+    base: "pl.FrameInput"  # numpy leaves
+    cam_idx: int  # accepted camera message (the first of the interval)
+    cam_t_us: np.int32  # its stamp relative to the previous frame stamp
+    extra_idx: np.ndarray  # (NE,) int64: the interval's later messages
+
+
 def to_device(tree, device):
     """A NamedTuple of numpy arrays (or stacked lists of them) as tensors."""
     return type(tree)(*[torch.as_tensor(np.asarray(a)).to(device) for a in tree])
@@ -87,16 +114,17 @@ class Frontend:
     card unless ``device="cpu"`` is asked for."""
 
     def __init__(self, params, device="cuda"):
-        if params.enable_camera:
-            raise NotImplementedError(
-                "liwslam_torch: the camera path is not ported yet "
-                "(ROADMAP.md queue A item 12, kernels B3 and B4)"
-            )
         self.params = params
         self.device = resolve_device(device)
         self.consts = fac.make_consts(params, self.device)
         self.scfg = pl.make_static_cfg(params)
         self.dcfg = pl.make_dyn_cfg(params, self.device)
+        if params.enable_camera:
+            self.ccfg = cpl.make_cam_static_cfg(params)
+            self.cdyn = cpl.make_cam_dyn_cfg(params, self.device)
+        # camera entries solved inside the init window: (t_us, p, q,
+        # n_tracked, n_ready), filled by _finish_init, reported by run()
+        self._init_cam_rows = []
 
     # -- per-frame pieces of the init window --------------------------------
 
@@ -129,17 +157,26 @@ class Frontend:
     def pack_frames(self, streams):
         """Slice IMU/wheel streams into per-laser-frame FrameInputs (numpy)
         for laser frames relative to their predecessors, plus the frame
-        timestamps."""
+        timestamps.  With ``enable_camera`` each frame is a
+        :class:`PackedCam` that names its interval's camera messages by
+        their index in ``streams.cam_images``."""
         prm = self.params
+        use_cam = prm.enable_camera
         sensor_times = [
             np.asarray(streams.imu_t_us) * 1e-6,
             np.asarray(streams.wheel_t_us) * 1e-6,
             np.asarray(streams.laser_t_us) * 1e-6,
         ]
-        order_s, order_i = dp.merge_numpy(sensor_times, [True] * 3, watermark=1, drain=True)
+        if use_cam:
+            cam_ts_all = np.asarray(getattr(streams, "cam_t_us", np.zeros(0, np.int64)))
+            if len(cam_ts_all) == 0:
+                raise ValueError("enable_camera=True but the stream has no camera data")
+            sensor_times.append(cam_ts_all * 1e-6)
+        order_s, order_i = dp.merge_numpy(sensor_times, [True] * len(sensor_times), watermark=1, drain=True)
         imu_keep = np.sort(order_i[order_s == 0])
         wheel_keep = np.sort(order_i[order_s == 1])
         laser_keep = np.sort(order_i[order_s == 2])
+        cam_keep = np.sort(order_i[order_s == 3])
 
         lt = np.asarray(streams.laser_t_us)[laser_keep]
         laser_orig = laser_keep
@@ -160,6 +197,13 @@ class Frontend:
         imu_acc_f = np.asarray(streams.imu_acc)[imu_keep]
         imu_gyro_f = np.asarray(streams.imu_gyro)[imu_keep]
         wheel_pose_f = np.asarray(streams.wheel_pose)[wheel_keep]
+        if use_cam:
+            # capacity for the interval's later camera messages: 0 when the
+            # camera rate is at most the laser rate
+            ct = cam_ts_all[cam_keep]
+            bounds = np.concatenate([[0], lt])
+            n_in = [int(np.count_nonzero((ct > a) & (ct <= b))) for a, b in zip(bounds[:-1], bounds[1:])]
+            n_extra = max([0] + [n - 1 for n in n_in])
         frames = []
         for k in range(len(lt)):
             t0 = lt[k - 1] if k > 0 else 0
@@ -177,34 +221,123 @@ class Frontend:
             pts, _ = _pad(pts, prm.max_points)
             okp, _ = _pad(ok, prm.max_points)
             rayt, _ = _pad(streams.laser_times_rel[ko], prm.max_points)
-            frames.append(
-                pl.FrameInput(
-                    dt_us=np.int32(t1 - t0),
-                    imu_acc=acc,
-                    imu_gyro=gyr,
-                    imu_t_us=its,
-                    imu_mask=np.arange(prm.max_imu_per_frame) < ni,
-                    wheel_pose=wp,
-                    wheel_t_us=wts,
-                    wheel_mask=np.arange(prm.max_wheel_per_frame) < nw,
-                    points=pts,
-                    point_valid=okp,
-                    ray_t=rayt,
+            base = pl.FrameInput(
+                dt_us=np.int32(t1 - t0),
+                imu_acc=acc,
+                imu_gyro=gyr,
+                imu_t_us=its,
+                imu_mask=np.arange(prm.max_imu_per_frame) < ni,
+                wheel_pose=wp,
+                wheel_t_us=wts,
+                wheel_mask=np.arange(prm.max_wheel_per_frame) < nw,
+                points=pts,
+                point_valid=okp,
+                ray_t=rayt,
+            )
+            if use_cam:
+                # the first camera message after the previous laser frame is
+                # the interval's camera frame (trajectory.cpp:301); later
+                # ones are LK-tracked only (trajectory.cpp:279-310)
+                sel = cam_keep[np.flatnonzero((ct > t0) & (ct <= t1))]
+                extra = np.full(n_extra, -1, np.int64)
+                extra[: max(len(sel) - 1, 0)] = sel[1:]
+                base = PackedCam(
+                    base=base,
+                    cam_idx=int(sel[0]) if len(sel) else -1,
+                    cam_t_us=np.int32(int(cam_ts_all[sel[0]]) - t0 if len(sel) else 0),
+                    extra_idx=extra,
+                )
+            frames.append(base)
+        return frames, lt
+
+    def stage(self, frames, images):
+        """PackedCam frames on the device as ``camera_pipeline.
+        FrameInputCam``: one copy of the chunk's images to the card, and the
+        frames' images as views of it."""
+        idx = sorted({i for f in frames for i in (f.cam_idx, *f.extra_idx) if i >= 0})
+        row = {i: j for j, i in enumerate(idx)}
+        imgs = torch.as_tensor(np.asarray(images[idx], np.float32)).to(self.device)
+        bases = self.stack_frames([f.base for f in frames])
+        cam_t = torch.as_tensor(np.asarray([f.cam_t_us for f in frames], np.int32)).to(self.device)
+        out = []
+        for j, f in enumerate(frames):
+            out.append(
+                cpl.FrameInputCam(
+                    base=pl.FrameInput(*[t[j] for t in bases]),
+                    cam_img=imgs[row[f.cam_idx]] if f.cam_idx >= 0 else None,
+                    cam_t_us=cam_t[j],
+                    cam_valid=f.cam_idx >= 0,
+                    cam_extra_imgs=tuple(imgs[row[i]] for i in f.extra_idx if i >= 0),
+                    cam_extra_mask=f.extra_idx >= 0,
                 )
             )
-        return frames, lt
+        return out
 
     # -- initialization ------------------------------------------------------
 
-    def initialize(self, frames, lt):
+    @staticmethod
+    def _split_frame(base: pl.FrameInput, cam_t: int):
+        """Split one interval's FrameInput (numpy) at the camera stamp.  The
+        second part's samples move to the front of their arrays, so every
+        part's mask stays a valid prefix (``imu_interval_parallel``)."""
+        cam_t = int(cam_t)
+
+        def front(mask, *arrays):
+            order = np.argsort(~mask, kind="stable")
+            return (mask[order],) + tuple(a[order] for a in arrays)
+
+        m2i = base.imu_mask & (base.imu_t_us > cam_t)
+        m2w = base.wheel_mask & (base.wheel_t_us > cam_t)
+        m2i_f, acc, gyr, its = front(m2i, base.imu_acc, base.imu_gyro, base.imu_t_us)
+        m2w_f, wp, wts = front(m2w, base.wheel_pose, base.wheel_t_us)
+        inp_a = base._replace(
+            dt_us=np.int32(cam_t),
+            imu_mask=base.imu_mask & (base.imu_t_us <= cam_t),
+            wheel_mask=base.wheel_mask & (base.wheel_t_us <= cam_t),
+        )
+        inp_b = base._replace(
+            dt_us=np.int32(int(base.dt_us) - cam_t),
+            imu_acc=acc,
+            imu_gyro=gyr,
+            imu_t_us=(its - cam_t).astype(np.int32),
+            imu_mask=m2i_f,
+            wheel_pose=wp,
+            wheel_t_us=(wts - cam_t).astype(np.int32),
+            wheel_mask=m2w_f,
+        )
+        return inp_a, inp_b
+
+    def initialize(self, frames, lt, images=None):
         """The INITIALIZING state machine.  Returns (TrackState, first
-        tracking frame index, init window WindowState, window times)."""
+        tracking frame index, init window WindowState, window times,
+        CamTrackState or None).
+
+        With ``enable_camera`` (``images``: the stream's image array) the
+        window interleaves camera frames as the reference does
+        (trajectory.cpp:279-370): ``slide_window_size`` counts frames of
+        both kinds, the first frame must be laser, a camera frame carries
+        its own preintegration interval, and LK runs on every camera
+        message before any accept gate."""
         prm = self.params
         dev = self.device
         W = prm.slide_window_size
         z3 = torch.zeros(3, dtype=torch.float32, device=dev)
         Tiw64 = prm.mat_T_imu_to_wheel()
         p0, q0 = geo.log_SE3(geo.tf_inv(self.consts.T_imu_to_wheel))
+        use_cam = prm.enable_camera
+        self._init_cam_rows = []
+        cam_state = None
+        if use_cam:
+            ccfg, cdyn = self.ccfg, self.cdyn
+            cam_state = cpl.init_cam_state(images.shape[1], images.shape[2], ccfg, dev)
+            img = lambda i: torch.as_tensor(np.asarray(images[i], np.float32)).to(dev)
+
+            def observe_all(cs, fk):
+                # the accepted message, then the interval's later ones (LK only)
+                cs = cpl.observe(cs, img(fk.cam_idx), ccfg, cdyn)
+                for i in fk.extra_idx[fk.extra_idx >= 0]:
+                    cs = cpl.observe(cs, img(i), ccfg, cdyn, replenish=False)
+                return cs
 
         def dead_reckon(cur_p, cur_q, wheel_res):
             delta_imu = Tiw64 @ wheel_res.delta_T.cpu().double().numpy() @ np.linalg.inv(Tiw64)
@@ -219,14 +352,27 @@ class Frontend:
             wheel_c = pre.wheel_reset(0, dev)
             cur_p, cur_q = p0, q0
             window = []
+            cam_entries = []  # window indices of camera entries
+            if use_cam:
+                # a failed window discards its observations; the LK chain
+                # survives (the reference's camera_manager outlives a reset)
+                cam_state = cam_state._replace(
+                    fw=cam_state.fw._replace(
+                        obs_mask=torch.zeros_like(cam_state.fw.obs_mask),
+                        ready=torch.zeros_like(cam_state.fw.ready),
+                    ),
+                    ring_valid=torch.zeros_like(cam_state.ring_valid),
+                )
             front_sub = None
             started = False
             imu_seen = wheel_seen = 0
             while k < n_frames:
                 fk = frames[k]
-                inp = to_device(fk, dev)
-                imu_seen += int(np.sum(fk.imu_mask))
-                wheel_seen += int(np.sum(fk.wheel_mask))
+                base_np = fk.base if use_cam else fk
+                has_cam = use_cam and fk.cam_idx >= 0
+                inp = to_device(base_np, dev)
+                imu_seen += int(np.sum(base_np.imu_mask))
+                wheel_seen += int(np.sum(base_np.wheel_mask))
                 # feed samples even for skipped frames (preint keeps running)
                 keep, nxt, imu_res, wheel_res = self._preint(imu_c, wheel_c, inp, z3, z3)
                 accepted = True
@@ -248,9 +394,35 @@ class Frontend:
                         started = True
                 if not accepted:
                     imu_c, wheel_c = keep
+                    if has_cam:
+                        cam_state = observe_all(cam_state, fk)
                     k += 1
                     continue
-                imu_c, wheel_c = nxt
+                if has_cam and window:
+                    # camera window entry with its own preintegration interval
+                    inp_a, inp_b = self._split_frame(base_np, fk.cam_t_us)
+                    _, (imu_c, wheel_c), imu_res_a, wheel_res_a = self._preint(
+                        imu_c, wheel_c, to_device(inp_a, dev), z3, z3
+                    )
+                    cam_p, cam_q = dead_reckon(cur_p, cur_q, wheel_res_a)
+                    cam_state = cpl.observe(cam_state, img(fk.cam_idx), ccfg, cdyn)
+                    cam_state = cpl.record(cam_state, cam_p, cam_q, cdyn)
+                    window.append(
+                        dict(t_us=int(lt[k - 1] if k else 0) + int(fk.cam_t_us), p=cam_p, q=cam_q,
+                             imu=imu_res_a, wheel=wheel_res_a, feats=None, match=None,
+                             n_tracked=int(torch.sum(cam_state.live)))
+                    )
+                    cam_entries.append(len(window) - 1)
+                    for i in fk.extra_idx[fk.extra_idx >= 0]:
+                        cam_state = cpl.observe(cam_state, img(i), ccfg, cdyn, replenish=False)
+                    cur_p, cur_q = cam_p, cam_q
+                    _, (imu_c, wheel_c), imu_res, wheel_res = self._preint(
+                        imu_c, wheel_c, to_device(inp_b, dev), z3, z3
+                    )
+                else:
+                    if has_cam:  # the first window frame must be laser (trajectory.cpp:303)
+                        cam_state = observe_all(cam_state, fk)
+                    imu_c, wheel_c = nxt
                 cur_p, cur_q = dead_reckon(cur_p, cur_q, wheel_res)
                 feats = self._extract(inp.points, inp.point_valid)
                 if front_sub is None:
@@ -271,16 +443,24 @@ class Frontend:
                 )
                 k += 1
                 if len(window) >= W:
-                    track, st_opt = self._finish_init(window)
+                    track, st_opt, cam_state = self._finish_init(window, cam_state, cam_entries)
                     times = np.asarray([f["t_us"] for f in window])
-                    return track, k, st_opt, times
+                    return track, k, st_opt, times, cam_state
             else:
                 raise RuntimeError(
                     f"stream ended during initialization (frame {k}/{n_frames})"
                 )
 
-    def _finish_init(self, window):
-        """init_solve + submap rebuild + marginalization -> TrackState."""
+    def _finish_init(self, window, cam_state=None, cam_entries=()):
+        """init_solve + submap rebuild + marginalization -> (TrackState,
+        window state, CamTrackState or None).
+
+        With camera entries in the window the init solve carries
+        reprojection rows over free landmarks, as
+        ``do_init_solve(..., enable_camera_factor=true)`` does
+        (solver.cpp:60-85,171-174): landmarks are triangulated first from
+        the dead-reckoned ring poses (``estimate_features(true)``,
+        trajectory.cpp:419) and those that fail are dropped."""
         prm = self.params
         dev = self.device
         consts = self.consts
@@ -335,19 +515,75 @@ class Frontend:
             prior_idx=torch.zeros((), dtype=torch.int32, device=dev),
             prior_valid=torch.zeros((), dtype=torch.bool, device=dev),
         )
-        res_fn = lambda x: fac.stack_residuals(fac.WindowState.from_flat(x, W), data, consts)
-        x_opt, _, _ = gn.lm_solve(
-            res_fn,
-            st.flat(),
-            torch.ones(W * 15, **f32),
-            gn.LMConfig(max_iters=prm.init_solver_max_iterations),
-            wrap_fn=lambda x: pl.wrap_q(x, W),
+        base_res = lambda x: fac.stack_residuals(fac.WindowState.from_flat(x[: W * 15], W), data, consts)
+        use_cam = cam_state is not None and len(cam_entries) > 0
+        if use_cam:
+            ccfg, cdyn = self.ccfg, self.cdyn
+            Wc, F = ccfg.obs_window, ccfg.n_features
+            # obs slot w <-> window frame: the last Wc camera entries sit in
+            # the newest ring / observation slots, by construction of record()
+            taken = list(cam_entries)[-Wc:]
+            slot_to_frame = np.full(Wc, -1, np.int64)
+            slot_to_frame[Wc - len(taken) :] = taken
+            slot_valid = torch.as_tensor(slot_to_frame >= 0).to(dev)
+            s2f = torch.as_tensor(np.maximum(slot_to_frame, 0)).to(dev)
+            fw0 = ft.triangulate_ready(
+                cam_state.fw._replace(ready=torch.zeros_like(cam_state.fw.ready)),
+                cam_state.ring_p, cam_state.ring_q, cdyn.T_imu_to_camera,
+                min_obs=min(ccfg.min_obs, max(2, len(taken) // 2)), min_parallax=cdyn.min_parallax,
+            )
+            ready = fw0.ready
+            use = (fw0.obs_mask & slot_valid[None, :] & ready[:, None]).to(torch.float32)[..., None]
+
+            def res_fn(x):
+                stw = fac.WindowState.from_flat(x[: W * 15], W)
+                world = x[W * 15 :].reshape(F, 3)
+                rows = fac.camera_residual(
+                    stw.p[s2f][None], stw.q[s2f][None], world[:, None, :], fw0.obs,
+                    cdyn.T_imu_to_camera, cdyn.sqrt_info,
+                )
+                return torch.cat([base_res(x), (rows * use).reshape(-1)])
+
+            free = torch.cat([torch.ones(W * 15, **f32), ready.to(torch.float32).repeat_interleave(3)])
+            x0 = torch.cat([st.flat(), fw0.world.reshape(-1)])
+            wrap = lambda x: torch.cat([pl.wrap_q(x[: W * 15], W), x[W * 15 :]])
+        else:
+            res_fn, free, x0 = base_res, torch.ones(W * 15, **f32), st.flat()
+            wrap = lambda x: pl.wrap_q(x, W)
+        x_full, _, _ = gn.lm_solve(
+            res_fn, x0, free, gn.LMConfig(max_iters=prm.init_solver_max_iterations), wrap_fn=wrap
         )
+        x_opt = x_full[: W * 15]
         st_opt = fac.WindowState.from_flat(x_opt, W)
+        if use_cam:
+            # the optimized landmarks; the ring poses become the optimized
+            # camera-frame poses
+            fw1 = fw0._replace(
+                world=x_full[W * 15 :].reshape(F, 3),
+                ids=torch.where(ready, fw0.ids, torch.full_like(fw0.ids, -1)),
+                obs_mask=fw0.obs_mask & ready[:, None],
+            )
+            ring_p, ring_q = cam_state.ring_p.clone(), cam_state.ring_q.clone()
+            for w in range(Wc):
+                if slot_to_frame[w] >= 0:
+                    ring_p[w], ring_q[w] = st_opt.p[slot_to_frame[w]], st_opt.q[slot_to_frame[w]]
+            cam_state = cam_state._replace(
+                fw=fw1, live=cam_state.live & ready, ring_p=ring_p, ring_q=ring_q, ring_valid=slot_valid
+            )
+            # the init window's camera entries are reported too; n_ready is
+            # the post-init triangulation count, shared by all of them
+            n_ready = int(torch.sum(ready))
+            self._init_cam_rows = [
+                (window[i]["t_us"], st_opt.p[i].cpu().numpy(), st_opt.q[i].cpu().numpy(),
+                 window[i]["n_tracked"], n_ready)
+                for i in cam_entries
+            ]
 
         # rebuild the submaps from the optimized poses (trajectory.cpp:466-478)
         pair = mm.empty_pair(prm.ref_capacity, dev)
         for i, f in enumerate(window):
+            if f["feats"] is None:
+                continue
             pair = mm.add_scan(
                 pair, f["feats"], st_opt.p[i], st_opt.q[i], consts.T_imu_to_laser,
                 ref_n_accumulation=prm.ref_n_accumulation,
@@ -374,7 +610,7 @@ class Frontend:
             prior_valid=torch.full((), not prm.fast_mode, dtype=torch.bool, device=dev),
             last_keyframe_T=geo.make_tf(st_opt.p[-1], st_opt.q[-1]) @ consts.T_imu_to_laser,
         )
-        return track, st_opt
+        return track, st_opt, cam_state
 
     # -- tracking --------------------------------------------------------------
 
@@ -386,22 +622,39 @@ class Frontend:
     def run_chunk(self, track, batch):
         return pl.run_chunk(track, batch, self.consts, self.dcfg, self.scfg)
 
+    def run_chunk_cam(self, track, cam, inputs):
+        return cpl.run_chunk_cam(track, cam, inputs, self.consts, self.dcfg, self.scfg, self.ccfg, self.cdyn)
+
     def run(self, streams, chunk_size=32, chunk_callback=None) -> FrontendResult:
         """Run the full stream.  ``chunk_callback(info)`` fires after each
         chunk's outputs are back on the host, with the chunk's first frame
         index, frame count, stamps and poses (as the reference package's
         ``run`` hands chunks to its back end)."""
+        use_cam = self.params.enable_camera
+        images = streams.cam_images if use_cam else None
         frames, lt = self.pack_frames(streams)
-        track, k0, st_init, init_times = self.initialize(frames, lt)
+        track, k0, st_init, init_times, cam = self.initialize(frames, lt, images)
         n_init = len(init_times)
         out_t = [int(t) for t in init_times]
         rows = {k: [] for k in ("p", "q", "v", "bs", "kf", "nm", "nl")}
         kf_corners, kf_indices, kf_scans = [], [], []
+        # (t_us, p, q, n_tracked, n_ready) per accepted camera frame
+        cam_rows = list(self._init_cam_rows)
         k = k0
         F = len(frames)
         while k < F:
             n = min(chunk_size, F - k)
-            track, outs = self.run_chunk(track, self.stack_frames(frames[k : k + n]))
+            if use_cam:
+                (track, cam), (outs, couts) = self.run_chunk_cam(track, cam, self.stage(frames[k : k + n], images))
+                couts = cpl.CamFrameOutput(*[c if i == 2 else c.cpu().numpy() for i, c in enumerate(couts)])
+                for i in np.flatnonzero(couts.valid):
+                    t0 = int(lt[k + i - 1]) if k + i > 0 else 0
+                    cam_rows.append(
+                        (t0 + int(frames[k + i].cam_t_us), couts.p[i], couts.q[i],
+                         int(couts.n_tracked[i]), int(couts.n_ready[i]))
+                    )
+            else:
+                track, outs = self.run_chunk(track, self.stack_frames(frames[k : k + n]))
             outs = pl.FrameOutput(*[t.cpu().numpy() for t in outs])
             for i in range(n):
                 out_t.append(int(lt[k + i]))
@@ -425,6 +678,7 @@ class Frontend:
             a = init_a.cpu().numpy()
             return np.concatenate([a, np.stack(rows[key])]) if rows[key] else a
 
+        cam_col = lambda j, shape: np.stack([r[j] for r in cam_rows]) if cam_rows else np.zeros(shape)
         return FrontendResult(
             t_us=np.asarray(out_t),
             p=cat(st_init.p, "p"),
@@ -437,4 +691,9 @@ class Frontend:
             kf_corners=kf_corners,
             kf_indices=np.asarray(kf_indices, np.int64),
             kf_scans=kf_scans,
+            cam_t_us=np.asarray([r[0] for r in cam_rows], np.int64),
+            cam_p=cam_col(1, (0, 3)),
+            cam_q=cam_col(2, (0, 3)),
+            cam_n_tracked=np.asarray([r[3] for r in cam_rows], np.int64),
+            cam_n_ready=np.asarray([r[4] for r in cam_rows], np.int64),
         )

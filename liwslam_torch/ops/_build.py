@@ -7,8 +7,10 @@ plain C interface and loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
 
 The libraries go to ``liwslam_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is
-rebuilt at its next use and an unchanged one is loaded as it is.  All
+named by a hash of the source, of every ``csrc/`` header it includes
+(directly or through another header) and of the flags, so an edited source
+or header is rebuilt at its next use and an unchanged one is loaded as it
+is.  All
 sources that need a build are compiled at once, one ``nvcc`` process each.
 There is no fallback: a missing ``nvcc`` or a failed build raises, with the
 compiler's output in the message.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +29,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("extract_lines", "track_solve")
+SOURCES = ("extract_lines", "track_solve", "lk_track", "cam_solve")
 # where nvcc is looked for after PATH and $CUDA_HOME
 CUDA_ROOTS = ("/usr/local/cuda",)
 FLAGS = (
@@ -54,10 +57,31 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources_of(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, transitively."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            todo += [
+                inc.decode() for inc in _INCLUDE.findall(fh.read())
+                if os.path.isfile(os.path.join(CSRC, inc.decode()))
+            ]
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}.{digest}.so")
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for f in _sources_of(name):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
 def load() -> dict:

@@ -270,18 +270,25 @@ def _solve_one(inp, b, max_iters, ftol, xtol, early_exit):
         stalled = ~accept & (lam >= _LAM_MAX)
         done = done | (rel_change < ftol) | xtol_hit | stalled
 
-    # Schur reduction of frame 0 at the solution (unmasked J)
+    dH, dg = schur_frame0(J, r)
+    iters = torch.full((), it, dtype=torch.int32, device=x.device)
+    return x, c, dH, dg, iters
+
+
+def schur_frame0(J, r):
+    """Schur reduction of frame 0 out of the normal equations of (J, r)
+    (unmasked, 30 columns): Hmm + 1e-8 I, equilibrated Cholesky, the
+    symmetrised 15x15 dH and dg (``gn.marginalize`` keep = 15)."""
     H = J.T @ J
     gm = -(J.T @ r)
-    Hmm = H[0:15, 0:15] + 1e-8 * torch.eye(15, dtype=x.dtype, device=x.device)
+    Hmm = H[0:15, 0:15] + 1e-8 * torch.eye(15, dtype=J.dtype, device=J.device)
     sm = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Hmm), min=1e-20))
     Lm, _ = torch.linalg.cholesky_ex(Hmm * sm[:, None] * sm[None, :])
     rhs = torch.cat([H[0:15, 15:30], gm[0:15, None]], 1) * sm[:, None]
     sol = sm[:, None] * _chol_solve(Lm, rhs)
     dH = H[15:30, 15:30] - H[15:30, 0:15] @ sol[:, :15]
     dg = gm[15:30] - H[15:30, 0:15] @ sol[:, 15]
-    iters = torch.full((), it, dtype=torch.int32, device=x.device)
-    return x, c, 0.5 * (dH + dH.T), dg, iters
+    return 0.5 * (dH + dH.T), dg
 
 
 def lm_solve_track_plain(

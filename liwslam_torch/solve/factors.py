@@ -13,8 +13,10 @@ stacked residual replaces Ceres autodiff.
 - ground_factor.h:25-89 — wheel-frame height and tilt penalties.
 - marginalization_factor.h:50 — the prior is ``J_lin (X - X_lin)``.
 
-The camera, edge and loop residuals are not ported yet (camera path and
-back end; ROADMAP queue A).
+- camera_factor.h:36-67 — whitened normalized-plane reprojection error.
+
+The edge and loop residuals are not ported yet (back end; ROADMAP queue
+A).
 """
 
 from __future__ import annotations
@@ -214,3 +216,14 @@ def stack_residuals(st: WindowState, d: FactorData, c: SolveConsts):
             prior_residual(st, d, c),
         ]
     )
+
+
+def camera_residual(p, q, world_point, cam_point_xy, T_imu_to_camera, sqrt_info):
+    """(...,2) whitened normalized-plane reprojection error of world points
+    seen from IMU-frame poses (p, q) (camera_factor.h:36-67), broadcasting
+    over leading dims; ``sqrt_info`` is (2,) = fx / camera_sigma."""
+    T_w_c = geo.make_tf(p, q) @ T_imu_to_camera
+    cam = geo.tf_apply(geo.tf_inv(T_w_c), world_point)
+    z = cam[..., 2:3]
+    z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    return sqrt_info * (cam_point_xy - cam[..., :2] / z)

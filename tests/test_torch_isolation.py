@@ -74,8 +74,10 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Frontend(prm)
     assert Frontend(prm, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Frontend(prm.replace(enable_camera=True), device="cpu")
+    cam = prm.replace(enable_camera=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Frontend(cam)
+    assert Frontend(cam, device="cpu").cdyn.K.device.type == "cpu"
     # a wrapper takes its plain version only for CPU tensors; anything else
     # that is not a CUDA float32 tensor is refused, not computed
     pts = torch.zeros((8, 3), dtype=torch.float64, device="meta")
@@ -108,9 +110,12 @@ def test_config_presets_match_reference(preset):
 
 
 def test_simulator_and_metrics_match_reference():
-    kw = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, noise=True, seed=3)
-    j = jsim.simulate(jsim.default_track("L"), jsim.square_room(obstacles=True), jconfig.office(), **kw)
-    t = tsim.simulate(tsim.default_track("L"), tsim.square_room(obstacles=True), tconfig.office(), **kw)
+    # camera images too (the camera path's input), at 160x120
+    kw = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, noise=True, seed=3, camera_hz=10.0, camera_wh=(160, 120))
+    cam = dict(enable_camera=True, camera_K=tsim.synthetic_camera_K(160, 120))
+    j = jsim.simulate(jsim.default_track("L"), jsim.square_room(obstacles=True), jconfig.office().replace(**cam), **kw)
+    t = tsim.simulate(tsim.default_track("L"), tsim.square_room(obstacles=True), tconfig.office().replace(**cam), **kw)
+    assert t.cam_images.shape == (len(t.cam_t_us), 120, 160) and t.cam_images.max() > 0.4
     fields = [f.name for f in dataclasses.fields(j)]
     assert fields == [f.name for f in dataclasses.fields(t)]
     for name in fields:
@@ -138,6 +143,17 @@ def test_build_is_keyed_by_source_hash(monkeypatch, tmp_path):
     assert first == _build._lib_path("k")
     (src / "k.cu").write_text("// two\n")
     assert _build._lib_path("k") != first
+    # a header the source includes (directly or through another header)
+    # keys the library too; an unrelated header does not
+    (src / "k.cu").write_text('#include "a.cuh"\n')
+    (src / "a.cuh").write_text('#include "b.cuh"\n')
+    (src / "b.cuh").write_text("// one\n")
+    (src / "other.cuh").write_text("// one\n")
+    second = _build._lib_path("k")
+    (src / "other.cuh").write_text("// two\n")
+    assert _build._lib_path("k") == second
+    (src / "b.cuh").write_text("// two\n")
+    assert _build._lib_path("k") != second
     assert set(_build.SOURCES) == {p.stem for p in (ROOT / "liwslam_torch" / "csrc").glob("*.cu")}
 
 

@@ -1,11 +1,12 @@
 """Where the port's front end spends a tracked frame on the GPU.
 
-    python3 tools/profile_torch_frontend.py [--frames 32] [--trace trace.json]
+    python3 tools/profile_torch_frontend.py [--camera] [--frames 32] [--trace trace.json]
 
 Runs ``liwslam_torch.frontend.driver.Frontend`` at bench.py's full size
-(chip_smoke.py's ``bench_params`` / ``bench_streams``) through its init
-window and one warm-up chunk, then times one chunk of tracked frames three
-ways:
+(chip_smoke.py's ``bench_params`` / ``bench_streams``; with ``--camera``
+the camera path of chip_smoke.py's ``cam_params`` at 848x480 and 30 Hz)
+through its init window and one warm-up chunk, then times one chunk of
+tracked frames three ways:
 
 - wall: host clock around ``run_chunk`` ending in ``torch.cuda.synchronize``;
 - device busy: the union of the CUDA kernel and memcpy intervals that
@@ -66,6 +67,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=32, help="tracked frames in the profiled chunk")
     ap.add_argument("--trace", default=None, help="write the Chrome trace of the profiled chunk here")
+    ap.add_argument("--camera", action="store_true", help="profile the camera path (848x480, 30 Hz)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_frontend: CUDA is not available", file=sys.stderr)
@@ -78,27 +80,37 @@ def main():
     _build.load()
     dev = torch.device("cuda:0")
     prm = chip_smoke.bench_params()
-    streams = chip_smoke.bench_streams(prm)
+    if args.camera:
+        prm = chip_smoke.cam_params(prm)
+    streams = chip_smoke.bench_streams(prm, camera=args.camera)
+    images = streams.cam_images if args.camera else None
     fe = Frontend(prm, device=dev)
     frames, lt = fe.pack_frames(streams)
-    track, k0, _, _ = fe.initialize(frames, lt)
+    track, k0, _, _, cam = fe.initialize(frames, lt, images)
     n = args.frames
     if k0 + 2 * n > len(frames):
         raise SystemExit(f"need {2 * n} tracked frames, the track has {len(frames) - k0}")
-    warm = fe.stack_frames(frames[k0 : k0 + n])
-    track, _ = fe.run_chunk(track, warm)
-    batch = fe.stack_frames(frames[k0 + n : k0 + 2 * n])
+    if args.camera:
+        chunk = lambda st, b: fe.run_chunk_cam(st[0], st[1], b)[0]
+        stage = lambda fr: fe.stage(fr, images)
+        state = (track, cam)
+    else:
+        chunk = lambda st, b: fe.run_chunk(st, b)[0]
+        stage = fe.stack_frames
+        state = track
+    state = chunk(state, stage(frames[k0 : k0 + n]))
+    batch = stage(frames[k0 + n : k0 + 2 * n])
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    fe.run_chunk(track, batch)
+    chunk(state, batch)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fe.run_chunk(track, batch)
+        chunk(state, batch)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     busy_us, n_dev = _busy_us(prof.events())
@@ -113,9 +125,16 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
 
+    from liwslam_torch.frontend import camera_pipeline as cpl
     from liwslam_torch.frontend import pipeline as pl
 
-    one = pl.FrameInput(*[t[0] for t in batch])
+    if args.camera:
+        # a frame with an accepted camera message, so the sub-step runs
+        one = next(b for b in batch if b.cam_valid)
+        step = lambda: cpl.tracking_step_cam(state[0], state[1], one, fe.consts, fe.dcfg, fe.scfg, fe.ccfg, fe.cdyn)
+    else:
+        one = pl.FrameInput(*[t[0] for t in batch])
+        step = lambda: pl.tracking_step(state, one, fe.consts, fe.dcfg, fe.scfg)
     sites = Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
@@ -131,7 +150,7 @@ def main():
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            pl.tracking_step(track, one, fe.consts, fe.dcfg, fe.scfg)
+            step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
@@ -140,6 +159,7 @@ def main():
     summary = dict(
         device=torch.cuda.get_device_name(0),
         nvidia_smi=smi,
+        path="camera" if args.camera else "laser",
         frames=n,
         wall_ms_per_frame=per(wall_plain * 1e3),
         wall_ms_per_frame_profiled=per(wall_prof * 1e3),

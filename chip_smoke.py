@@ -10,10 +10,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
 3. kernels against their plain PyTorch versions on the card, on the same
    inputs: B2 (line extraction) on 20 scans of the bench track, B1 (the
    tracking solve) on a two-frame problem with 64 line matches in both
-   tracking modes (``fast_mode`` freezes more dims); each kernel is timed
-   by its device duration (profiler, median of 60 launches) and, with its
+   tracking modes (``fast_mode`` freezes more dims), on a batch of three
+   different systems and at M = 1 and M = M_MAX; each kernel is timed by
+   its device duration (profiler, median of 60 launches) and, with its
    plain version, by CUDA events around each call (median of 60 calls
-   after warm-up);
+   after warm-up); B1's device time is also split into a fixed and a
+   per-iteration part (:func:`iteration_split`);
 4. main path: ``liwslam_torch.frontend.driver.Frontend(device="cuda").run``
    on the synthetic office loop track at bench.py's full size (1080-beam
    scans at 10 Hz, IMU 200 Hz, wheel 20 Hz, noise on, seed 1), with the
@@ -27,9 +29,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    ATE (< 0.02 m and within 1.5x the laser-only path's);
 6. B3 (pyramidal LK) against its plain version on 20 bench image pairs
    and a shifted textured image, and B4 (the camera joint solve) on a
-   captured camera sub-step and a synthetic problem, timed like B1 and B2;
+   captured camera sub-step, a synthetic problem, a batch of three and the
+   (F, Wc) edges of its thread mapping and shared memory, timed like B1;
 7. one JSON object ``{"kernels": [...]}`` with each kernel's launches on its
-   main path, error against its plain version, times and bound.
+   main path, error against its plain version, times and bound; B1's and
+   B4's rows also carry their fixed and per-iteration ms, the chain
+   estimate and ptxas's registers and spill bytes.
 
 The last line is ``{"ok": true, "device": {...}}``.  No CPU fallback: the
 script exits non-zero when CUDA is not available.
@@ -50,6 +55,17 @@ import torch
 # the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+# The LM kernels' chain estimate (us a link): the least time their
+# dependent chain in one block could take, from instruction latencies on
+# this card (~20-50 ns a sqrt, IEEE division or transcendental, ~12 ns a
+# shuffle or shared-memory load), not from its rates.  A linearization:
+# the longest lane (the IMU gamma rows: ~60 dependent dual-number ops, ~15
+# of them sqrt, division or trigonometric) and three barriers, ~2 us; with
+# the camera rows' three rounds of items, ~2.5 us.  An LM step: 24
+# factorization steps of a shuffle, a sqrt, a division and a load (~65 ns)
+# and 30 back-substitution steps (~40 ns), ~2.5 us; with B4's landmark step
+# and back-substitution, ~3.5 us.  The Schur reduction, ~1.5 us.
+CHAIN_US = dict(lin=2.0, step=2.5, cam_lin=2.5, cam_step=3.5, schur=1.5)
 
 
 class SmokeFailure(AssertionError):
@@ -178,6 +194,24 @@ def kernel_ms(fn, kernel, n=60):
     return statistics.median(durs[:n])
 
 
+def iteration_split(run, kernel, iters=(0, 1, 2, 4, 8), n=20):
+    """Fixed and per-iteration device ms of an LM kernel.  ``run(k)``
+    launches it with ``max_iters = k`` and returns its outputs, the last of
+    which is the iterations it ran.  The device ms of each ``k`` (median of
+    ``n`` launches) is fitted by least squares as ``fixed + per_iter *
+    iterations``: ``fixed`` is the first linearization and the Schur
+    reduction, ``per_iter`` one LM step (factorization, solve, trial
+    linearization, bookkeeping)."""
+    pts = []
+    for k in iters:
+        it = int(run(k)[-1][0])
+        pts.append((it, kernel_ms(lambda: run(k), kernel, n=n)))
+    its = np.array([p[0] for p in pts], float)
+    ms = np.array([p[1] for p in pts], float)
+    per_iter, fixed = np.polyfit(its, ms, 1) if len(set(its)) > 1 else (float("nan"), ms[0])
+    return dict(fixed_ms=float(fixed), per_iter_ms=float(per_iter), points=pts)
+
+
 def greedy_align(pa, pb, atol):
     """Align two scan-ordered row sets; returns (#matched, #unmatched,
     max |diff| over matched rows).  Tolerates single-row insertions and
@@ -278,23 +312,24 @@ def check_extract(prm, frames, dev):
 # ---------------------------------------------------------------- B1 ----
 
 
-def b1_problem(prm, dev, M=64, fast_mode=False):
+def b1_problem(prm, dev, M=64, fast_mode=False, seed=3, perturb=1.0):
     """A two-frame tracking solve in the tracking layout (see
     :func:`two_frame_problem`); the prior is left out in ``fast_mode``, as
     on the tracking path."""
     from liwslam_torch.ops import track_solve
 
-    x0, data, consts, _ = two_frame_problem(prm, dev, M, with_prior=not fast_mode)
+    x0, data, consts, _ = two_frame_problem(prm, dev, M, with_prior=not fast_mode, seed=seed, perturb=perturb)
     free, frozen = track_solve.tracking_free_mask(fast_mode)
     return track_solve.pack_inputs(x0, torch.as_tensor(free, device=dev), data, consts), frozen
 
 
-def two_frame_problem(prm, dev, M=64, with_prior=True):
+def two_frame_problem(prm, dev, M=64, with_prior=True, seed=3, perturb=1.0):
     """Ground-truth states at scans 40, 41 of the simulator's L track, the
     IMU and wheel preintegration between them, M synthetic wall lines seen
-    from both frames with 5 mm noise (30% of the rows masked), an SPD prior
-    on frame 0 (``with_prior``), and frame 1 perturbed.  Returns (x0,
-    FactorData, SolveConsts, x_true)."""
+    from both frames with 5 mm noise (30% of the rows masked; lines and
+    noise drawn from ``seed``), an SPD prior on frame 0 (``with_prior``),
+    and frame 1 perturbed (``perturb`` scales the perturbation).  Returns
+    (x0, FactorData, SolveConsts, x_true)."""
     from liwslam_torch.core import geometry as geo
     from liwslam_torch.frontend import preintegration as pre
     from liwslam_torch.sim import world as sim
@@ -346,7 +381,7 @@ def two_frame_problem(prm, dev, M=64, with_prior=True):
     wheel = pre.wheel_result(wc, f32(prm.wheel_sigma))
 
     consts = fac.make_consts(prm, dev)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     ang = rng.uniform(0, np.pi, M)
     c0 = rng.uniform(-3, 3, (M, 2))
     u = np.stack([np.cos(ang), np.sin(ang)], -1)
@@ -389,59 +424,119 @@ def two_frame_problem(prm, dev, M=64, with_prior=True):
         prior_valid=torch.tensor(with_prior, device=dev),
     )
     x0 = x_true.clone()
-    x0[15:18] += f32([0.04, -0.03, 0.01])
-    x0[18:21] += f32([0.01, -0.01, 0.02])
-    x0[21:24] += f32([0.03, 0.0, -0.02])
+    x0[15:18] += f32([0.04, -0.03, 0.01]) * perturb
+    x0[18:21] += f32([0.01, -0.01, 0.02]) * perturb
+    x0[21:24] += f32([0.03, 0.0, -0.02]) * perturb
     return x0, data, consts, x_true
 
 
-def _check_b1(inp, frozen, max_iters):
-    """Kernel B1 against lm_solve_track_plain on the same inputs: poses
-    atol 5e-4, whole x atol 2e-3, cost <= 1.02x the plain cost, Schur
-    quadratic forms within 10%, dg within 1e-4 of the dH scale.  Returns
-    (max |x err|, kernel iterations, plain iterations, kernel cost, plain
-    cost)."""
+def _check_b1(inp, frozen, max_iters, name=""):
+    """Kernel B1 against lm_solve_track_plain on the same inputs, each of
+    the B systems against its own plain run: poses atol 5e-4, whole x atol
+    2e-3, cost <= 1.02x the plain cost, Schur quadratic forms within 10%,
+    dg within 1e-4 of the dH scale.  Returns (max |x err|, kernel
+    iterations, plain iterations, kernel cost, plain cost) of system 0,
+    the error over all systems."""
     from liwslam_torch.ops import track_solve as ts
 
-    xk, ck, dHk, dgk, itk = ts.lm_solve_track_batched(inp, max_iters=max_iters, frozen_dims=frozen)
-    xp, cp, dHp, dgp, itp = ts.lm_solve_track_plain(inp, max_iters=max_iters)
+    outk = ts.lm_solve_track_batched(inp, max_iters=max_iters, frozen_dims=frozen)
+    outp = ts.lm_solve_track_plain(inp, max_iters=max_iters)
     torch.cuda.synchronize()
-    xk, xp = xk[0].cpu().double().numpy(), xp[0].cpu().double().numpy()
-    ck, cp = float(ck[0]), float(cp[0])
-    dHk, dHp = dHk[0].cpu().double().numpy(), dHp[0].cpu().double().numpy()
-    dgk, dgp = dgk[0].cpu().double().numpy(), dgp[0].cpu().double().numpy()
-    check(np.all(np.isfinite(xk)) and np.isfinite(ck), "B1: non-finite output")
-    check(np.abs(xk[15:21] - xp[15:21]).max() < 5e-4, f"B1 pose err {np.abs(xk[15:21] - xp[15:21]).max()}")
-    err = float(np.abs(xk - xp).max())
-    check(err < 2e-3, f"B1 x err {err}")
-    check(ck <= cp * 1.02, f"B1 cost {ck} vs plain {cp}")
-    rng = np.random.default_rng(5)
-    scale = np.abs(dHp).max()
-    for _ in range(16):
-        v = rng.normal(size=15)
-        v /= np.linalg.norm(v)
-        qk, qp = v @ dHk @ v, v @ dHp @ v
-        check(abs(qk - qp) < 0.10 * max(abs(qp), 1e-4 * scale), f"B1 Schur form {qk} vs {qp}")
-    check(np.abs(dgk - dgp).max() < 1e-4 * scale, f"B1 dg err {np.abs(dgk - dgp).max()}")
-    return err, int(itk[0]), int(itp[0]), ck, cp
+    err = 0.0
+    for b in range(inp.x0.shape[0]):
+        tag = f"B1 {name} system {b}"
+        n = lambda t: t[b].cpu().double().numpy()
+        xk, ck, dHk, dgk, _ = map(n, outk)
+        xp, cp, dHp, dgp, _ = map(n, outp)
+        ck, cp = float(ck), float(cp)
+        check(np.all(np.isfinite(xk)) and np.isfinite(ck), f"{tag}: non-finite output")
+        check(np.abs(xk[15:21] - xp[15:21]).max() < 5e-4, f"{tag}: pose err {np.abs(xk[15:21] - xp[15:21]).max()}")
+        e = float(np.abs(xk - xp).max())
+        check(e < 2e-3, f"{tag}: x err {e}")
+        check(ck <= cp * 1.02, f"{tag}: cost {ck} vs plain {cp}")
+        rng = np.random.default_rng(5)
+        scale = np.abs(dHp).max()
+        for _ in range(16):
+            v = rng.normal(size=15)
+            v /= np.linalg.norm(v)
+            qk, qp = v @ dHk @ v, v @ dHp @ v
+            check(abs(qk - qp) < 0.10 * max(abs(qp), 1e-4 * scale), f"{tag}: Schur form {qk} vs {qp}")
+        check(np.abs(dgk - dgp).max() < 1e-4 * scale, f"{tag}: dg err {np.abs(dgk - dgp).max()}")
+        err = max(err, e)
+    return err, int(outk[4][0]), int(outp[4][0]), float(outk[1][0]), float(outp[1][0])
+
+
+def stack_inputs(inps):
+    """B = len(inps) systems in one kernel input (a NamedTuple of tensors,
+    nested NamedTuples concatenated field by field)."""
+    first = inps[0]
+    return type(first)(*[
+        stack_inputs(list(parts)) if isinstance(parts[0], tuple) else torch.cat(parts).contiguous()
+        for parts in zip(*inps)
+    ])
+
+
+def ptxas_report(name, kernel):
+    """Registers, spill bytes (stores) and stack frame of ``kernel`` from
+    the ptxas report of source ``name``'s build; the spill stores of the
+    functions it calls are added in."""
+    import re
+
+    from liwslam_torch.ops import _build
+
+    regs = stack = None
+    spill = 0
+    fn = entry = ""
+    for line in _build.build_info.get(name, {}).get("log", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            spill += int(m.group(2))
+            if kernel in fn:
+                stack = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel in entry:
+            regs = int(m.group(1))
+    return dict(regs=regs, spill_bytes=spill, stack_bytes=stack)
 
 
 def check_track_solve(prm, dev):
     """Kernel B1 against its plain version in both tracking modes (the
-    frozen-dim skip differs), timed in the main path's mode."""
+    frozen-dim skip differs), on a batch of three different systems (the
+    per-block indexing) and at the edges of its thread mapping (M = 1 and
+    M = M_MAX line matches); timed in the main path's mode, with the fixed
+    and per-iteration split of its device time."""
     from liwslam_torch.ops import track_solve as ts
 
+    mi = prm.solver_max_iterations
     err = 0.0
     for fast in (True, False):
         inp_f, frozen_f = b1_problem(prm, dev, fast_mode=fast)
-        e, it_k, it_p, ck, cp = _check_b1(inp_f, frozen_f, prm.solver_max_iterations)
+        e, it_k, it_p, ck, cp = _check_b1(inp_f, frozen_f, mi, "fast_mode" if fast else "full")
         err = max(err, e)
         if fast == prm.fast_mode:
             inp, frozen, itk, itp, costs = inp_f, frozen_f, it_k, it_p, (ck, cp)
-    kw = dict(max_iters=prm.solver_max_iterations, frozen_dims=frozen)
+    batch = [
+        b1_problem(prm, dev, fast_mode=prm.fast_mode, seed=seed, perturb=pt)[0]
+        for seed, pt in ((4, 0.5), (5, 1.5), (6, -1.0))
+    ]
+    err = max(err, _check_b1(stack_inputs(batch), frozen, mi, "batch of 3")[0])
+    for M in (1, ts.M_MAX):
+        err = max(err, _check_b1(b1_problem(prm, dev, M=M, fast_mode=prm.fast_mode)[0], frozen, mi, f"M={M}")[0])
+    kw = dict(max_iters=mi, frozen_dims=frozen)
     call_ms = time_ms(lambda: ts.lm_solve_track_batched(inp, **kw))
     ms = kernel_ms(lambda: ts.lm_solve_track_batched(inp, **kw), "track_solve_kernel")
-    plain_ms = time_ms(lambda: ts.lm_solve_track_plain(inp, max_iters=prm.solver_max_iterations), n=60, warm=3)
+    plain_ms = time_ms(lambda: ts.lm_solve_track_plain(inp, max_iters=mi), n=60, warm=3)
+    split = iteration_split(
+        lambda k: ts.lm_solve_track_batched(inp, max_iters=k, early_exit=False, frozen_dims=frozen),
+        "track_solve_kernel",
+    )
+    ptx = ptxas_report("track_solve", "track_solve_kernel")
     M = inp.laser.shape[1]
     n_lin = itk + 1
     nbytes = sum(t.numel() * 4 for t in inp) + (30 + 1 + 225 + 15 + 1) * 4
@@ -457,10 +552,13 @@ def check_track_solve(prm, dev):
     # + scaling (~2000); Schur: 15x15 Cholesky, 16 solves, 15x15x15 product
     nops = n_lin * lin_ops + (n_lin - 1) * 12800 + (2300 + 16 * 450 + 2 * 3375)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
+    chain_ms = (n_lin * CHAIN_US["lin"] + (n_lin - 1) * CHAIN_US["step"] + CHAIN_US["schur"]) / 1e3
     print(
-        f"B1 track_solve: M={M}, kernel {itk} / plain {itp} LM iterations, "
-        f"max |x err| {err:.3e} (both modes), cost {costs[0]:.6g} vs {costs[1]:.6g}; "
-        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call), plain {plain_ms:.4f} ms a call",
+        f"B1 track_solve: M={M}, kernel {itk} / plain {itp} LM iterations, max |x err| {err:.3e} "
+        f"(both modes, a batch of 3, M=1 and M={ts.M_MAX}), cost {costs[0]:.6g} vs {costs[1]:.6g}; "
+        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call; fixed {split['fixed_ms']:.4f} + "
+        f"{split['per_iter_ms']:.4f} an iteration), plain {plain_ms:.4f} ms a call, chain estimate "
+        f"{chain_ms:.4f} ms; ptxas {ptx}",
         flush=True,
     )
     return dict(
@@ -475,6 +573,10 @@ def check_track_solve(prm, dev):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None,
         call_ms=call_ms,
+        fixed_ms=split["fixed_ms"],
+        per_iter_ms=split["per_iter_ms"],
+        chain_ms=chain_ms,
+        **ptx,
     )
 
 
@@ -698,47 +800,69 @@ def tilted(inp, rad=0.02):
 
 
 def _check_b4(inp, frozen, max_iters, name):
-    """Kernel B4 against lm_solve_cam_plain on the same inputs, with
-    tests/test_cam_solve.py's tolerances: poses atol 1e-3, x atol 5e-3,
-    free landmarks atol 5e-3, frozen landmarks unchanged, cost within 2%,
-    Schur quadratic forms within 10%, dg within 1e-4 of the dH scale."""
+    """Kernel B4 against lm_solve_cam_plain on the same inputs, each of the
+    B systems against its own plain run, with tests/test_cam_solve.py's
+    tolerances: poses atol 1e-3, x atol 5e-3, free landmarks atol 5e-3,
+    frozen landmarks unchanged, cost within 2%, Schur quadratic forms
+    within 10%, dg within 1e-4 of the dH scale.  Returns (max |x, landmark
+    err| over the systems, kernel iterations, plain iterations, kernel
+    cost, plain cost) of system 0."""
     from liwslam_torch.ops import cam_solve as cs
 
-    xk, wk, ck, dHk, dgk, itk = cs.lm_solve_cam_batched(inp, max_iters=max_iters, frozen_dims=frozen)
-    xp, wp, cp, dHp, dgp, itp = cs.lm_solve_cam_plain(inp, max_iters=max_iters)
+    outk = cs.lm_solve_cam_batched(inp, max_iters=max_iters, frozen_dims=frozen)
+    outp = cs.lm_solve_cam_plain(inp, max_iters=max_iters)
     torch.cuda.synchronize()
-    n = lambda t: t[0].cpu().double().numpy()
-    xk, xp, wk, wp, dHk, dHp, dgk, dgp = map(n, (xk, xp, wk, wp, dHk, dHp, dgk, dgp))
-    ck, cp = float(ck[0]), float(cp[0])
-    lmf = inp.lm_free[0].cpu().numpy() > 0
-    w0 = inp.world0[0].cpu().double().numpy()
-    check(np.all(np.isfinite(xk)) and np.all(np.isfinite(wk)) and np.isfinite(ck), f"B4 {name}: non-finite output")
-    check(np.abs(xk[15:21] - xp[15:21]).max() < 1e-3, f"B4 {name}: pose err {np.abs(xk[15:21] - xp[15:21]).max()}")
-    check(np.abs(xk - xp).max() < 5e-3, f"B4 {name}: x err {np.abs(xk - xp).max()}")
-    werr = float(np.abs(wk[lmf] - wp[lmf]).max()) if lmf.any() else 0.0
-    check(werr < 5e-3, f"B4 {name}: landmark err {werr}")
-    check(np.array_equal(wk[~lmf], w0[~lmf]), f"B4 {name}: a frozen landmark moved")
-    check(abs(ck - cp) < 0.02 * max(cp, 1e-3), f"B4 {name}: cost {ck} vs plain {cp}")
-    rng = np.random.default_rng(5)
-    scale = np.abs(dHp).max()
-    for _ in range(16):
-        v = rng.normal(size=15)
-        v /= np.linalg.norm(v)
-        qk, qp = v @ dHk @ v, v @ dHp @ v
-        check(abs(qk - qp) < 0.10 * max(abs(qp), 1e-4 * scale), f"B4 {name}: Schur form {qk} vs {qp}")
-    check(np.abs(dgk - dgp).max() < 1e-4 * scale, f"B4 {name}: dg err {np.abs(dgk - dgp).max()}")
-    return max(float(np.abs(xk - xp).max()), werr), int(itk[0]), int(itp[0]), ck, cp
+    err = 0.0
+    for b in range(inp.world0.shape[0]):
+        tag = f"B4 {name} system {b}"
+        n = lambda t: t[b].cpu().double().numpy()
+        xk, wk, ck, dHk, dgk, _ = map(n, outk)
+        xp, wp, cp, dHp, dgp, _ = map(n, outp)
+        ck, cp = float(ck), float(cp)
+        lmf = inp.lm_free[b].cpu().numpy() > 0
+        w0 = inp.world0[b].cpu().double().numpy()
+        check(np.all(np.isfinite(xk)) and np.all(np.isfinite(wk)) and np.isfinite(ck), f"{tag}: non-finite output")
+        check(np.abs(xk[15:21] - xp[15:21]).max() < 1e-3, f"{tag}: pose err {np.abs(xk[15:21] - xp[15:21]).max()}")
+        check(np.abs(xk - xp).max() < 5e-3, f"{tag}: x err {np.abs(xk - xp).max()}")
+        werr = float(np.abs(wk[lmf] - wp[lmf]).max()) if lmf.any() else 0.0
+        check(werr < 5e-3, f"{tag}: landmark err {werr}")
+        check(np.array_equal(wk[~lmf], w0[~lmf]), f"{tag}: a frozen landmark moved")
+        check(abs(ck - cp) < 0.02 * max(cp, 1e-3), f"{tag}: cost {ck} vs plain {cp}")
+        rng = np.random.default_rng(5)
+        scale = np.abs(dHp).max()
+        for _ in range(16):
+            v = rng.normal(size=15)
+            v /= np.linalg.norm(v)
+            qk, qp = v @ dHk @ v, v @ dHp @ v
+            check(abs(qk - qp) < 0.10 * max(abs(qp), 1e-4 * scale), f"{tag}: Schur form {qk} vs {qp}")
+        check(np.abs(dgk - dgp).max() < 1e-4 * scale, f"{tag}: dg err {np.abs(dgk - dgp).max()}")
+        err = max(err, float(np.abs(xk - xp).max()), werr)
+    return err, int(outk[5][0]), int(outp[5][0]), float(outk[2][0]), float(outp[2][0])
 
 
 def check_cam_solve(prm, cprm, captured, dev):
     """Kernel B4 against its plain version on one camera sub-step's inputs
-    captured from the camera main path and on the synthetic problem, both
-    :func:`tilted`; timed on the captured one."""
+    captured from the camera main path, on the synthetic problem, on a
+    batch of three different synthetic systems (the per-block indexing)
+    and at the edges of its thread mapping (F = 1, Wc = 1, and the largest
+    (F, Wc) that the shared memory admits at F = F_MAX and at Wc =
+    WC_MAX), all :func:`tilted`; timed on the captured one, with the fixed
+    and per-iteration split of its device time."""
     from liwslam_torch.ops import cam_solve as cs
 
     max_iters = cprm.solver_max_iterations
     syn, frozen = b4_problem(prm, dev)
     e1, *_ = _check_b4(tilted(syn), frozen, max_iters, "synthetic")
+    batch = [b4_problem(prm, dev, seed=seed)[0] for seed in (1, 2, 3)]
+    e1 = max(e1, _check_b4(tilted(stack_inputs(batch)), frozen, max_iters, "batch of 3")[0])
+    wc_max_f = max(f for f in range(1, cs.F_MAX + 1) if cs.smem_bytes(f, cs.WC_MAX) <= cs.SMEM_MAX)
+    f_max_wc = max(w for w in range(1, cs.WC_MAX + 1) if cs.smem_bytes(cs.F_MAX, w) <= cs.SMEM_MAX)
+    edges = ((1, 8), (48, 1), (cs.F_MAX, f_max_wc), (wc_max_f, cs.WC_MAX))
+    for F, Wc in edges:
+        # with one window slot a landmark has a single view and no depth:
+        # its landmarks are frozen (the pose against fixed points)
+        inp_e, _ = b4_problem(prm, dev, F=F, Wc=Wc, n_free=F * 5 // 6 if Wc > 1 else 0)
+        e1 = max(e1, _check_b4(tilted(inp_e), frozen, max_iters, f"F={F} Wc={Wc}")[0])
     inp, frozen = captured
     inp = tilted(inp)
     e2, itk, itp, ck, cp = _check_b4(inp, frozen, max_iters, "bench sub-step")
@@ -746,6 +870,8 @@ def check_cam_solve(prm, cprm, captured, dev):
     call_ms = time_ms(lambda: cs.lm_solve_cam_batched(inp, **kw))
     ms = kernel_ms(lambda: cs.lm_solve_cam_batched(inp, **kw), "cam_solve_kernel")
     plain_ms = time_ms(lambda: cs.lm_solve_cam_plain(inp, max_iters=max_iters), n=10, warm=1)
+    split = iteration_split(lambda k: cs.lm_solve_cam_batched(inp, max_iters=k, frozen_dims=frozen), "cam_solve_kernel")
+    ptx = ptxas_report("cam_solve", "cam_solve_kernel")
     F, Wc = inp.obs.shape[1:3]
     n_use = int(inp.use.sum())
     n_lin = itk + 1
@@ -761,10 +887,13 @@ def check_cam_solve(prm, cprm, captured, dev):
     lin_ops += 7 * 150 * (n_use + F) + F * (30 * Wc + 120)
     nops = n_lin * lin_ops + (n_lin - 1) * (F * 310 + 12800) + 16300
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
+    chain_ms = (n_lin * CHAIN_US["cam_lin"] + (n_lin - 1) * CHAIN_US["cam_step"] + CHAIN_US["schur"]) / 1e3
     print(
         f"B4 cam_solve: F={F}, Wc={Wc}, {n_use} camera rows used, kernel {itk} / plain {itp} LM iterations, "
-        f"max |x, landmark err| {max(e1, e2):.3e} (bench sub-step and synthetic), cost {ck:.6g} vs {cp:.6g}; "
-        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call), plain {plain_ms:.4f} ms a call",
+        f"max |x, landmark err| {max(e1, e2):.3e} (bench sub-step, synthetic, a batch of 3, (F, Wc) = "
+        f"{', '.join(map(str, edges))}), cost {ck:.6g} vs {cp:.6g}; kernel {ms:.4f} ms on the device "
+        f"({call_ms:.4f} ms a call; fixed {split['fixed_ms']:.4f} + {split['per_iter_ms']:.4f} an iteration), "
+        f"plain {plain_ms:.4f} ms a call, chain estimate {chain_ms:.4f} ms; ptxas {ptx}",
         flush=True,
     )
     return dict(
@@ -779,6 +908,10 @@ def check_cam_solve(prm, cprm, captured, dev):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None,
         call_ms=call_ms,
+        fixed_ms=split["fixed_ms"],
+        per_iter_ms=split["per_iter_ms"],
+        chain_ms=chain_ms,
+        **ptx,
     )
 
 

@@ -31,36 +31,56 @@
 //
 // What bounds it on this card: nothing the card is rated for.  At F = 48,
 // Wc = 8 one linearization is ~0.5 MFLOP (base rows as in B1, 384 camera
-// cells of two dual-number passes, the landmark blocks) and one step a
-// 30x30 factorization, on ~15 KB of inputs: tens of nanoseconds at the
-// card's float32 rate.  The time is the dependent chain inside the block:
-// linearize, barrier, landmark blocks, barrier, factor on one thread,
-// barrier, back-substitute, barrier, up to max_iters times.
+// cells of a dual-number pass each and 96 pose passes, the landmark
+// blocks) and one step a 30x30 factorization, on ~15 KB of inputs: tens of
+// nanoseconds at the card's float32 rate.  The time is the length of the
+// dependent chain inside the block: linearize, landmark blocks, factor,
+// back-substitute, up to max_iters times, so what counts is the latency
+// of each link.
 //
 // What the design does about it: one launch for the whole solve and the
-// prior, every intermediate in shared memory.  Warp 0 runs the base rows
-// while warps 1-7 run one camera cell per thread (6 pose tangents for the
-// current slot, 3 landmark tangents for every slot); one thread per
-// landmark forms its 3x3 block, gradient and 6x3 coupling, inverts its
-// damped block and forms its share of the Schur terms; per-landmark
-// shares are summed by one thread per entry.  The 30x30 factorization and
-// solves run on one thread as in B1.  A parallel Cholesky and many systems
-// per block are later work.
+// prior, every intermediate in shared memory or registers, and every link
+// spread over the block (256 threads) so that no thread runs a long serial
+// loop:
+//   - linearization: warps 0-4 run the base rows, one factor kind a warp
+//     and one tangent column a lane (solve_common.cuh), and warps 3-7 the
+//     camera work items, one dual-number pass (width 3) a thread: a
+//     landmark pass for every (slot, landmark) cell and a p pass and a q
+//     pass for every landmark of the current slot; one thread a landmark then
+//     forms its 3x3 block, gradient and 6x3 coupling and its shares of the
+//     pose block, summed by warp shuffles and one block step;
+//   - each LM step: one thread a landmark damps and inverts its block and
+//     forms its shares of the Schur terms (summed the same way); warp 0
+//     builds the damped, Schur-reduced, equilibrated 30x30 a row a lane and
+//     factors and solves it with the warp-parallel Cholesky of
+//     solve_common.cuh; one thread a landmark back-substitutes;
+//   - the convergence maxima over the pose and the landmarks are warp
+//     reductions and one block step; the accepted linearization and
+//     landmarks are kept by flipping between two buffers, not by copying;
+//   - the Schur reduction of frame 0 is B1's (schur_frame0).
+// Where the chain's cycles go now (the synthetic F = 48, Wc = 8 problem,
+// 8 iterations; H100, tools/profile_torch_solves.py --phases): the
+// factorizations ~32%, the linearizations' rows ~27% (camera items and the
+// wheel lanes), their sums and assembly ~13%, the back substitutions ~10%,
+// the landmark steps ~7%.
 //
-// Limits: F <= 256 landmarks (one thread each), Wc <= 32 window slots, and
-// the dynamic shared memory 4 * (FIXED + 8 F Wc + 131 F) bytes <= 227 KB
-// (about 54 KB at F = 48, Wc = 8).
+// Limits: F <= F_MAX landmarks (one thread each), Wc <= WC_MAX window
+// slots, and the dynamic shared memory
+// 4 * (FIXED + PER_FW * F * Wc + PER_F * F) bytes <= SMEM_MAX (about 51 KB
+// at F = 48, Wc = 8); ops/cam_solve.py holds the same numbers.
 
 #include "solve_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int F_MAX = 256;
 constexpr int WC_MAX = 32;
-constexpr int FIXED = 4160;  // floats of the fixed part of the shared layout
+constexpr int FIXED = 5712;  // floats of the fixed part of the shared layout (struct Fixed)
+constexpr int PER_FW = 8;    // floats a (slot, landmark) cell: r (2), landmark tangents (6)
+constexpr int PER_F = 85;    // floats a landmark (struct Lm)
 constexpr int SMEM_MAX = 232448;
 constexpr int P0 = 15;  // camera-frame pose block x[15:21]
+constexpr int CAM_WARP0 = 3;  // the camera items run on warps 3-7
 
 // per-system camera inputs
 struct Cam {
@@ -74,221 +94,357 @@ struct Cam {
   int F, Wc;
 };
 
-// one linearization's reduced normal equations
-struct Lin {
-  float* Hb;   // (30,30) base rows, unmasked J^T J
-  float* gb;   // (30,)   -J^T r
-  float* Hc;   // (6,6)   camera rows' pose block
-  float* gc;   // (6,)
-  float* Hll;  // (6,F)   landmark blocks 00 01 02 11 12 22
-  float* gl;   // (3,F)
-  float* Hpl;  // (18,F)  coupling [pose k][landmark a] at k*3+a
-  float* cost; // [0] base, [1] camera (halves of the sums of squares)
+// the fixed part of the shared layout
+struct Fixed {
+  BaseSm b;
+  float Hb[2][D * D], gb[2][D];  // base rows: unmasked J^T J, -J^T r ([cur] accepted, [cur ^ 1] trial)
+  float Hc[2][36], gc[2][6];     // camera rows' pose block
+  float cost[2][2];              // [k][0] base, [k][1] camera (halves of the sums of squares)
+  float x[D], xt[D], dx[D], free[D];
+  float ES[27];                  // Schur terms: E (21 upper entries), c6 (6)
+  float mred[NWARPS][2];         // per-warp maxima of the steps and the states
+  float c, lam;
+  int done, cur;
+};
+static_assert(sizeof(Fixed) <= 4 * FIXED, "FIXED is smaller than struct Fixed");
+static_assert(FIXED % 4 == 0, "the per-landmark part must stay 16-byte aligned");
+
+// the per-landmark part of the shared layout, FIXED floats in; landmark
+// arrays are (k, F), cell arrays (k, F * Wc), cell = w * F + f
+struct Lm {
+  float* cr;      // (2, FW) camera residuals
+  float* cJw;     // (6, FW) their landmark tangents
+  float* cJp;     // (12, F) pose tangents of the current slot's rows
+  float* wl[2];   // (3, F) landmark positions [cur] accepted, [cur ^ 1] trial
+  float* dxl;     // (3, F) landmark step
+  float* lmf;     // (F,)
+  float* Hll[2];  // (6, F) landmark blocks 00 01 02 11 12 22
+  float* gl[2];   // (3, F)
+  float* Hpl[2];  // (18, F) coupling [pose k][landmark a] at k*3+a
+  float* Hinv;    // (6, F) damped inverse
+  float* glA;     // (3, F) masked gradient
 };
 
-// the shared layout, carved from dynamic shared memory
-struct Sm {
-  float *x, *xt, *dx, *free;
-  float* Jnl;  // (R_NL, D)
-  float* rnl;
-  float* A;    // (D, D) factorization scratch
-  float* scal; // c, lam, done, accept, iteration terms
-  float* ES;   // (27,) Schur terms E (21 upper entries) and c6 (6)
-  float *cr, *cJw, *cJp;  // cells: r (2,FW), Jw (6,FW), Jp (12,F) for slot Wc-1
-  float *wld, *wt, *dxl, *lmf;  // (3,F) x3, (F,)
-  float *Hinv, *K, *glA;        // (6,F), (18,F), (3,F)
-  float* part;                  // (28,F) per-landmark shares
-  Lin acc, trial;
-};
-
-__device__ __forceinline__ float* carve(float*& p, int n) {
-  float* r = p;
-  p += n;
-  return r;
-}
-
-__device__ Sm layout(float* base, int F, int Wc) {
-  Sm s;
-  float* p = base;
-  s.x = carve(p, D);
-  s.xt = carve(p, D);
-  s.dx = carve(p, D);
-  s.free = carve(p, D);
-  s.Jnl = carve(p, R_NL * D);
-  s.rnl = carve(p, R_NL);
-  s.A = carve(p, D * D);
-  s.scal = carve(p, 16);
-  s.ES = carve(p, 27);
-  Lin* ls[2] = {&s.acc, &s.trial};
-  for (Lin* l : ls) {
-    l->Hb = carve(p, D * D);
-    l->gb = carve(p, D);
-    l->Hc = carve(p, 36);
-    l->gc = carve(p, 6);
-    l->cost = carve(p, 2);
-  }
-  p = base + FIXED;
+__device__ __forceinline__ Lm lm_layout(float* smem, int F, int Wc) {
+  Lm l;
+  float* p = smem + FIXED;
   const int FW = F * Wc;
-  s.cr = carve(p, 2 * FW);
-  s.cJw = carve(p, 6 * FW);
-  s.cJp = carve(p, 12 * F);
-  s.wld = carve(p, 3 * F);
-  s.wt = carve(p, 3 * F);
-  s.dxl = carve(p, 3 * F);
-  s.lmf = carve(p, F);
-  for (Lin* l : ls) {
-    l->Hll = carve(p, 6 * F);
-    l->gl = carve(p, 3 * F);
-    l->Hpl = carve(p, 18 * F);
+  l.cr = p; p += 2 * FW;
+  l.cJw = p; p += 6 * FW;
+  l.cJp = p; p += 12 * F;
+  l.wl[0] = p; p += 3 * F;
+  l.wl[1] = p; p += 3 * F;
+  l.dxl = p; p += 3 * F;
+  l.lmf = p; p += F;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    l.Hll[k] = p; p += 6 * F;
+    l.gl[k] = p; p += 3 * F;
+    l.Hpl[k] = p; p += 18 * F;
   }
-  s.Hinv = carve(p, 6 * F);
-  s.K = carve(p, 18 * F);
-  s.glA = carve(p, 3 * F);
-  s.part = carve(p, 28 * F);
-  return s;
+  l.Hinv = p; p += 6 * F;
+  l.glA = p;
+  return l;
 }
 
 // whitened reprojection rows (camera_factor.h:36-67) of world point wp seen
 // from the IMU-frame pose (p, q): R_wc = R(q) Ric, t_wc = p + R(q) tic,
 // cam = R_wc^T (wp - t_wc), r = si * (obs - cam.xy / z), |z| < 1e-9 -> 1e-9
-__device__ void cam_rows(const V3& p, const V3& q, const V3& wp, const F3& Ric, const float* tic,
-                         float ox, float oy, float si0, float si1, Dual* r) {
-  const M3 R = exp_so3(q);
-  const M3 Rwc = mmf(R, Ric);
-  const V3 u = wp - (mvf(R, tic) + p);
+template <int W>
+__device__ __forceinline__ void cam_rows(const V3<W>& p, const V3<W>& q, const V3<W>& wp, const F3& Ric,
+                                         const float* tic, float ox, float oy, float si0, float si1,
+                                         DualT<W>* r) {
+  using Dual = DualT<W>;
+  const M3<W> R = exp_so3(q);
+  const M3<W> Rwc = mmf(R, Ric);
+  const V3<W> u = wp - (mvf(R, tic) + p);
   const Dual cx = Rwc.a[0][0] * u.x + Rwc.a[1][0] * u.y + Rwc.a[2][0] * u.z;
   const Dual cy = Rwc.a[0][1] * u.x + Rwc.a[1][1] * u.y + Rwc.a[2][1] * u.z;
   Dual z = Rwc.a[0][2] * u.x + Rwc.a[1][2] * u.y + Rwc.a[2][2] * u.z;
-  if (fabsf(z.v) < 1e-9f) z = cst(1e-9f);
+  if (fabsf(z.v) < 1e-9f) z = cst<W>(1e-9f);
   r[0] = si0 * (ox - cx / z);
   r[1] = si1 * (oy - cy / z);
 }
 
-// linearization at (xs, wl) into `out`; all threads take part
-__device__ void linearize(const Sys& s, const Cam& cm, const float* xs, const float* wl, Sm& sm,
-                          const Lin& out) {
+// linearization at (xs, wl) into buffer k; all threads take part
+__device__ void linearize(const Sys& s, const Cam& cm, const float* xs, const float* wl, float* smem,
+                          int k) {
+  Fixed& fx = *reinterpret_cast<Fixed*>(smem);
+  const Lm L = lm_layout(smem, cm.F, cm.Wc);
   const int tid = threadIdx.x;
   const int F = cm.F, Wc = cm.Wc, FW = F * Wc;
-  for (int e = tid; e < R_NL * D; e += THREADS) sm.Jnl[e] = 0.f;
-  __syncthreads();
-  if (tid < 32) {
-    base_rows(s, xs, tid, reinterpret_cast<float (*)[D]>(sm.Jnl), sm.rnl);
-  } else {
+  if (tid < 32 * BASE_WARPS) base_rows(s, xs, fx.b);
+  if (tid >= 32 * CAM_WARP0) {
     const F3 Ric = rot_of(cm.Tic);
     const float tic[3] = {cm.Tic[3], cm.Tic[7], cm.Tic[11]};
     const float si0 = cm.si[0], si1 = cm.si[1];
-    for (int cell = tid - 32; cell < FW; cell += THREADS - 32) {
+    // items, dual numbers of width 3: a landmark pass for every cell,
+    // then two pose passes (p, q) for every landmark of the current slot,
+    // on warps CAM_WARP0.. (the IMU and wheel warps have the longest rows)
+    for (int item = THREADS - 1 - tid; item < FW + 2 * F; item += THREADS - 32 * CAM_WARP0) {
+      const int part = item < FW ? -1 : (item - FW) / F;  // -1 landmark, 0 p, 1 q
+      const int cell = part < 0 ? item : (Wc - 1) * F + (item - FW) % F;
       const int w = cell / F, f = cell % F;
-      const bool cur = w == Wc - 1;
       const float use = cm.use[f * Wc + w];
       if (use == 0.f) {
-        sm.cr[cell] = sm.cr[FW + cell] = 0.f;
-        for (int k = 0; k < 6; ++k) sm.cJw[k * FW + cell] = 0.f;
-        if (cur)
-          for (int k = 0; k < 12; ++k) sm.cJp[k * F + f] = 0.f;
+        if (part >= 0) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int a = 0; a < 3; ++a) L.cJp[(6 * e + 3 * part + a) * F + f] = 0.f;
+        } else {
+          L.cr[cell] = L.cr[FW + cell] = 0.f;
+#pragma unroll
+          for (int q = 0; q < 6; ++q) L.cJw[q * FW + cell] = 0.f;
+        }
         continue;
       }
       const float ox = cm.obs[(f * Wc + w) * 2], oy = cm.obs[(f * Wc + w) * 2 + 1];
-      const float* pq = cur ? xs + P0 : cm.ring + 6 * w;
-      // landmark tangents (columns 0..2 of the dual)
-      V3 wp = v3(cst(wl[f]), cst(wl[F + f]), cst(wl[2 * F + f]));
-      wp.x.d[0] = wp.y.d[1] = wp.z.d[2] = 1.f;
-      Dual r[2];
-      cam_rows(v3(cst(pq[0]), cst(pq[1]), cst(pq[2])), v3(cst(pq[3]), cst(pq[4]), cst(pq[5])), wp,
-               Ric, tic, ox, oy, si0, si1, r);
-      const float lf = sm.lmf[f];
-      for (int e = 0; e < 2; ++e) {
-        sm.cr[e * FW + cell] = r[e].v * use;
-        for (int a = 0; a < 3; ++a) sm.cJw[(3 * e + a) * FW + cell] = r[e].d[a] * use * lf;
-      }
-      if (cur) {
-        // pose tangents on x[15:21]
-        Dual rp[2];
-        cam_rows(X3(xs, P0, P0), X3(xs, P0 + 3, P0),
-                 v3(cst(wl[f]), cst(wl[F + f]), cst(wl[2 * F + f])), Ric, tic, ox, oy, si0, si1, rp);
+      const float* pq = w == Wc - 1 ? xs + P0 : cm.ring + 6 * w;
+      V3<3> p = v3(cst<3>(pq[0]), cst<3>(pq[1]), cst<3>(pq[2]));
+      V3<3> q = v3(cst<3>(pq[3]), cst<3>(pq[4]), cst<3>(pq[5]));
+      V3<3> wp = v3(cst<3>(wl[f]), cst<3>(wl[F + f]), cst<3>(wl[2 * F + f]));
+      // tangents: on the landmark, or on x[15:18], or on x[18:21]
+      wp.x.d[0] = wp.y.d[1] = wp.z.d[2] = part < 0 ? 1.f : 0.f;
+      p.x.d[0] = p.y.d[1] = p.z.d[2] = part == 0 ? 1.f : 0.f;
+      q.x.d[0] = q.y.d[1] = q.z.d[2] = part == 1 ? 1.f : 0.f;
+      DualT<3> r[2];
+      cam_rows(p, q, wp, Ric, tic, ox, oy, si0, si1, r);
+      if (part >= 0) {
+#pragma unroll
         for (int e = 0; e < 2; ++e)
-          for (int k = 0; k < 6; ++k) sm.cJp[(6 * e + k) * F + f] = rp[e].d[k] * use;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) L.cJp[(6 * e + 3 * part + a) * F + f] = r[e].d[a] * use;
+      } else {
+        const float lf = L.lmf[f];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          L.cr[e * FW + cell] = r[e].v * use;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) L.cJw[(3 * e + a) * FW + cell] = r[e].d[a] * use * lf;
+        }
       }
     }
   }
+  PHASE_WARP();
   __syncthreads();
-  // base normal equations: each thread owns entries of H, g and the cost
-  for (int e = tid; e < D * D + D + 1; e += THREADS) {
-    if (e < D * D) {
-      const int i = e / D, j = e % D;
-      float acc = 0.f;
-      for (int r = 0; r < R_NL; ++r) acc += sm.Jnl[r * D + i] * sm.Jnl[r * D + j];
-      out.Hb[e] = acc;
-    } else if (e < D * D + D) {
-      const int i = e - D * D;
-      float acc = 0.f;
-      for (int r = 0; r < R_NL; ++r) acc += sm.Jnl[r * D + i] * sm.rnl[r];
-      out.gb[i] = -acc;
-    } else {
-      float acc = 0.f;
-      for (int r = 0; r < R_NL; ++r) acc += sm.rnl[r] * sm.rnl[r];
-      out.cost[0] = 0.5f * acc;
-    }
-  }
-  // landmark blocks and each landmark's share of the pose block
+  PHASE(PH_ROWS);
+  whiten(fx.b);
+  // landmark blocks and each landmark's shares of the pose block: 21 upper
+  // entries, 6 of -J^T r, the camera cost
+  float v[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) v[q] = 0.f;
   if (tid < F) {
     const int f = tid;
     float hll[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gl[3] = {0.f, 0.f, 0.f}, cost = 0.f;
     for (int w = 0; w < Wc; ++w) {
       const int cell = w * F + f;
-      const float r0 = sm.cr[cell], r1 = sm.cr[FW + cell];
+      const float r0 = L.cr[cell], r1 = L.cr[FW + cell];
       float jw[2][3];
+#pragma unroll
       for (int e = 0; e < 2; ++e)
-        for (int a = 0; a < 3; ++a) jw[e][a] = sm.cJw[(3 * e + a) * FW + cell];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) jw[e][a] = L.cJw[(3 * e + a) * FW + cell];
       cost += r0 * r0 + r1 * r1;
       int q = 0;
+#pragma unroll
       for (int a = 0; a < 3; ++a) {
-        for (int b = a; b < 3; ++b) hll[q++] += jw[0][a] * jw[0][b] + jw[1][a] * jw[1][b];
+#pragma unroll
+        for (int bb = a; bb < 3; ++bb) hll[q++] += jw[0][a] * jw[0][bb] + jw[1][a] * jw[1][bb];
         gl[a] -= jw[0][a] * r0 + jw[1][a] * r1;
       }
     }
     const int cell = (Wc - 1) * F + f;
-    const float r0 = sm.cr[cell], r1 = sm.cr[FW + cell];
+    const float r0 = L.cr[cell], r1 = L.cr[FW + cell];
     float jp[2][6], jw[2][3];
+#pragma unroll
     for (int e = 0; e < 2; ++e) {
-      for (int k = 0; k < 6; ++k) jp[e][k] = sm.cJp[(6 * e + k) * F + f];
-      for (int a = 0; a < 3; ++a) jw[e][a] = sm.cJw[(3 * e + a) * FW + cell];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) jp[e][j] = L.cJp[(6 * e + j) * F + f];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) jw[e][a] = L.cJw[(3 * e + a) * FW + cell];
     }
-    for (int q = 0; q < 6; ++q) out.Hll[q * F + f] = hll[q];
-    for (int a = 0; a < 3; ++a) out.gl[a * F + f] = gl[a];
-    for (int k = 0; k < 6; ++k)
+#pragma unroll
+    for (int q = 0; q < 6; ++q) L.Hll[k][q * F + f] = hll[q];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) L.gl[k][a * F + f] = gl[a];
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
       for (int a = 0; a < 3; ++a)
-        out.Hpl[(3 * k + a) * F + f] = jp[0][k] * jw[0][a] + jp[1][k] * jw[1][a];
+        L.Hpl[k][(3 * j + a) * F + f] = jp[0][j] * jw[0][a] + jp[1][j] * jw[1][a];
     int q = 0;
-    for (int k = 0; k < 6; ++k)
-      for (int l = k; l < 6; ++l) sm.part[(q++) * F + f] = jp[0][k] * jp[0][l] + jp[1][k] * jp[1][l];
-    for (int k = 0; k < 6; ++k) sm.part[(21 + k) * F + f] = -(jp[0][k] * r0 + jp[1][k] * r1);
-    sm.part[27 * F + f] = cost;
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int l = j; l < 6; ++l) v[q++] = jp[0][j] * jp[0][l] + jp[1][j] * jp[1][l];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) v[21 + j] = -(jp[0][j] * r0 + jp[1][j] * r1);
+    v[27] = cost;
   }
+  warp_partials<NQ>(v, fx.b);
   __syncthreads();
-  if (tid < 28) {
-    float acc = 0.f;
-    for (int f = 0; f < F; ++f) acc += sm.part[tid * F + f];
-    if (tid < 21) {
-      // upper entry q -> (k, l)
-      int k = 0, q = tid;
-      while (q >= 6 - k) {
-        q -= 6 - k;
-        ++k;
-      }
-      const int l = k + q;
-      out.Hc[k * 6 + l] = acc;
-      out.Hc[l * 6 + k] = acc;
-    } else if (tid < 27) {
-      out.gc[tid - 21] = acc;
+  PHASE(PH_REDUCE);
+  // base normal equations (lower triangle, mirrored), the camera pose
+  // block; one entry a thread
+  float* Hb = fx.Hb[k];
+  constexpr int NT = D * (D + 1) / 2;
+  for (int t = tid; t < NT + D + 1 + NQ; t += THREADS) {
+    if (t < NT) {
+      int i, j;
+      lower_pair(t, i, j);
+      const float acc = base_jtj(fx.b, i, j);
+      Hb[i * D + j] = acc;
+      Hb[j * D + i] = acc;
+    } else if (t < NT + D) {
+      const int i = t - NT;
+      fx.gb[k][i] = -base_jtr(fx.b, i);
+    } else if (t == NT + D) {
+      fx.cost[k][0] = 0.5f * base_rtr(fx.b);
     } else {
-      out.cost[1] = 0.5f * acc;
+      const int q = t - NT - D - 1;
+      const float acc = block_total(fx.b, q);
+      if (q < 21) {
+        int kk, l;
+        upper6_pair(q, kk, l);
+        fx.Hc[k][kk * 6 + l] = acc;
+        fx.Hc[k][l * 6 + kk] = acc;
+      } else if (q < 27) {
+        fx.gc[k][q - 21] = acc;
+      } else {
+        fx.cost[k][1] = 0.5f * acc;
+      }
     }
   }
   __syncthreads();
+  PHASE(PH_LIN);
 }
 
-__global__ void __launch_bounds__(THREADS) cam_solve_kernel(
+// landmark f (one thread each): damp and invert its block, and its shares
+// of the Schur terms (21 upper entries of K Hpl^T, 6 of K gl) into v
+__device__ __forceinline__ void landmark_step(const Lm& L, int F, int f, int cur, float lam, float* v) {
+  const bool lmb = L.lmf[f] > 0.f;
+  const float* h = L.Hll[cur];
+  float dL[3];
+  const int dq[3] = {0, 3, 5};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float hv = h[dq[a] * F + f];
+    dL[a] = lmb ? hv + lam * fmaxf(hv, 1e-12f) : 1.f;
+  }
+  const float a_ = dL[0], e_ = dL[1], i_ = dL[2];
+  const float b_ = lmb ? h[1 * F + f] : 0.f;
+  const float c_ = lmb ? h[2 * F + f] : 0.f;
+  const float f_ = lmb ? h[4 * F + f] : 0.f;
+  const float cA = e_ * i_ - f_ * f_;
+  const float cB = -(b_ * i_ - f_ * c_);
+  const float cC = b_ * f_ - e_ * c_;
+  float det = a_ * cA + b_ * cB + c_ * cC;
+  if (fabsf(det) < 1e-30f) det = 1e-30f;
+  float hi[3][3];
+  hi[0][0] = cA / det;
+  hi[0][1] = hi[1][0] = cB / det;
+  hi[0][2] = hi[2][0] = cC / det;
+  hi[1][1] = (a_ * i_ - c_ * c_) / det;
+  hi[1][2] = hi[2][1] = -(a_ * f_ - c_ * b_) / det;
+  hi[2][2] = (a_ * e_ - b_ * b_) / det;
+  const int iq[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int bb = a; bb < 3; ++bb) L.Hinv[iq[a][bb] * F + f] = hi[a][bb];
+  float glA[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    glA[a] = lmb ? L.gl[cur][a * F + f] : 0.f;
+    L.glA[a * F + f] = glA[a];
+  }
+  float hpl[6][3], K[6][3];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) hpl[j][a] = L.Hpl[cur][(3 * j + a) * F + f];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb)
+      K[j][bb] = hpl[j][0] * hi[0][bb] + hpl[j][1] * hi[1][bb] + hpl[j][2] * hi[2][bb];
+  int q = 0;
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int g = j; g < 6; ++g) v[q++] = K[j][0] * hpl[g][0] + K[j][1] * hpl[g][1] + K[j][2] * hpl[g][2];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) v[21 + j] = K[j][0] * glA[0] + K[j][1] * glA[1] + K[j][2] * glA[2];
+}
+
+// warp 0: the damped, Schur-reduced, equilibrated pose step -> dx, xt
+__device__ __forceinline__ void lm_step(Fixed& fx, int cur, uint32_t frozen) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane < D ? lane : D - 1;
+  const float* Hb = fx.Hb[cur];
+  const float* Hc = fx.Hc[cur];
+  const float fi = fx.free[i];
+  const bool fb = fi > 0.f;
+  const bool ci = i >= P0 && i < P0 + 6;
+  const int ki = i - P0;
+  // (Hb * ff + hc) * ff, ff = free_i free_j, hc the camera pose block
+  auto entry = [&](int j) {
+    const float ff = fi * fx.free[j];
+    const bool cj = j >= P0 && j < P0 + 6;
+    const float hc = (ci && cj) ? Hc[ki * 6 + (j - P0)] : 0.f;
+    return (Hb[i * D + j] * ff + hc) * ff;
+  };
+  float dd = entry(i);
+  dd = fb ? dd + fx.lam * fmaxf(dd, 1e-12f) : 1.f;
+  if (ci) dd -= fx.ES[upper6(ki, ki)];
+  float a[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    float e = entry(j);
+    if (ci && j >= P0 && j < P0 + 6) {
+      const int kj = j - P0;
+      e -= fx.ES[ki < kj ? upper6(ki, kj) : upper6(kj, ki)];
+    }
+    a[j] = j == i ? dd : e;
+  }
+  float rhs = fb ? fx.gb[cur][i] * fi + (ci ? fx.gc[cur][ki] : 0.f) : 0.f;
+  if (ci) rhs -= fx.ES[21 + ki];
+  float d = equilibrated_solve<D>(a, dd, rhs, frozen, fx.b.T);
+  d = __all_sync(FULL, lane >= D || isfinite(d)) ? d * fi : 0.f;
+  const float xt = so3_wrap_lane(fx.x[i] + d, i);
+  if (lane < D) {
+    fx.dx[lane] = d;
+    fx.xt[lane] = xt;
+  }
+}
+
+// landmark f (one thread each): back-substitution into the trial buffer
+__device__ __forceinline__ void back_substitute(const Fixed& fx, const Lm& L, int F, int f, int cur) {
+  const float lf = L.lmf[f];
+  float rhs[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float acc = L.glA[a * F + f];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) acc -= L.Hpl[cur][(3 * j + a) * F + f] * fx.dx[P0 + j];
+    rhs[a] = acc;
+  }
+  const int iq[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float d = 0.f;
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) d += L.Hinv[iq[a][bb] * F + f] * rhs[bb];
+    d *= lf;
+    if (!isfinite(d)) d = 0.f;
+    L.dxl[a * F + f] = d;
+    L.wl[cur ^ 1][a * F + f] = L.wl[cur][a * F + f] + d;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) cam_solve_kernel(
     const float* __restrict__ x0, const float* __restrict__ free_, const float* __restrict__ imu_J,
     const float* __restrict__ imu_sqrtP, const float* __restrict__ imu_X,
     const float* __restrict__ prior_J, const float* __restrict__ prior_X,
@@ -300,9 +456,11 @@ __global__ void __launch_bounds__(THREADS) cam_solve_kernel(
     int F, int Wc, int max_iters, uint32_t frozen, float ftol, float xtol,
     float* __restrict__ x_out, float* __restrict__ world_out, float* __restrict__ cost_out,
     float* __restrict__ dH_out, float* __restrict__ dg_out, int* __restrict__ iters_out) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  Fixed& fx = *reinterpret_cast<Fixed*>(smem);
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   Sys s;
   s.x0 = x0 + b * D;
   s.free = free_ + b * D;
@@ -326,214 +484,107 @@ __global__ void __launch_bounds__(THREADS) cam_solve_kernel(
   cm.ring = ring + (size_t)b * Wc * 6;
   cm.F = F;
   cm.Wc = Wc;
-  Sm sm = layout(smem, F, Wc);
-  float& c = sm.scal[0];
-  float& lam = sm.scal[1];
-  float& done = sm.scal[2];
-  float& accept = sm.scal[3];
-  float& rel = sm.scal[4];
+  const Lm L = lm_layout(smem, F, Wc);
 
+  PHASE_START();
   if (tid < D) {
-    sm.x[tid] = s.x0[tid];
-    sm.free[tid] = s.free[tid];
+    fx.x[tid] = s.x0[tid];
+    fx.free[tid] = s.free[tid];
   }
-  for (int e = tid; e < 3 * F; e += THREADS) sm.wld[(e % 3) * F + e / 3] = cm.world0[e];
-  for (int f = tid; f < F; f += THREADS) sm.lmf[f] = cm.lmf[f];
+  for (int e = tid; e < 3 * F; e += THREADS) L.wl[0][(e % 3) * F + e / 3] = cm.world0[e];
+  for (int f = tid; f < F; f += THREADS) L.lmf[f] = cm.lmf[f];
   if (tid == 0) {
-    lam = 1e-4f;
-    done = 0.f;
+    fx.lam = 1e-4f;
+    fx.done = 0;
+    fx.cur = 0;
   }
+  base_init(s, fx.b);
   __syncthreads();
-  linearize(s, cm, sm.x, sm.wld, sm, sm.acc);
-  if (tid == 0) c = sm.acc.cost[0] + sm.acc.cost[1];
+  PHASE(PH_INIT);
+  linearize(s, cm, fx.x, L.wl[0], smem, 0);
+  if (tid == 0) fx.c = fx.cost[0][0] + fx.cost[0][1];
   __syncthreads();
 
   int it = 0;
+  // fx.done, fx.cur, fx.c and fx.lam are written by thread 0 before a
+  // barrier
   for (; it < max_iters; ++it) {
-    if (done != 0.f) break;
+    if (fx.done) break;
+    const int cur = fx.cur;
     // landmark blocks: damp, invert, Schur shares
+    float v[27];
+#pragma unroll
+    for (int q = 0; q < 27; ++q) v[q] = 0.f;
+    if (tid < F) landmark_step(L, F, tid, cur, fx.lam, v);
+    warp_partials<27>(v, fx.b);
+    __syncthreads();
+    PHASE(PH_LANDMARK);
+    if (warp == 0) {
+      if (lane < 27) fx.ES[lane] = block_total(fx.b, lane);
+      __syncwarp();
+      lm_step(fx, cur, frozen);
+    }
+    __syncthreads();
+    PHASE(PH_STEP);
+    if (tid < F) back_substitute(fx, L, F, tid, cur);
+    __syncthreads();
+    PHASE(PH_BACKSUB);
+    linearize(s, cm, fx.xt, L.wl[cur ^ 1], smem, cur ^ 1);
+    // accept or reject; the maxima of the steps and of the accepted states
+    const float ct = fx.cost[cur ^ 1][0] + fx.cost[cur ^ 1][1];
+    const bool acc = ct < fx.c;
+    float mdx = 0.f, mx = 0.f;
+    if (tid < D) {
+      mdx = fabsf(fx.dx[tid]);
+      mx = fabsf(acc ? fx.xt[tid] : fx.x[tid]);
+    }
     if (tid < F) {
-      const int f = tid;
-      const bool lmb = sm.lmf[f] > 0.f;
-      const float* h = sm.acc.Hll;
-      const float l = lam;
-      float dL[3];
-      const int dq[3] = {0, 3, 5};
+      const float* wn = L.wl[acc ? cur ^ 1 : cur];
+#pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float v = h[dq[a] * F + f];
-        dL[a] = lmb ? v + l * fmaxf(v, 1e-12f) : 1.f;
+        mdx = fmaxf(mdx, fabsf(L.dxl[a * F + tid]));
+        mx = fmaxf(mx, fabsf(wn[a * F + tid]));
       }
-      const float a_ = dL[0], e_ = dL[1], i_ = dL[2];
-      const float b_ = lmb ? h[1 * F + f] : 0.f;
-      const float c_ = lmb ? h[2 * F + f] : 0.f;
-      const float f_ = lmb ? h[4 * F + f] : 0.f;
-      const float cA = e_ * i_ - f_ * f_;
-      const float cB = -(b_ * i_ - f_ * c_);
-      const float cC = b_ * f_ - e_ * c_;
-      float det = a_ * cA + b_ * cB + c_ * cC;
-      if (fabsf(det) < 1e-30f) det = 1e-30f;
-      float hi[3][3];
-      hi[0][0] = cA / det;
-      hi[0][1] = hi[1][0] = cB / det;
-      hi[0][2] = hi[2][0] = cC / det;
-      hi[1][1] = (a_ * i_ - c_ * c_) / det;
-      hi[1][2] = hi[2][1] = -(a_ * f_ - c_ * b_) / det;
-      hi[2][2] = (a_ * e_ - b_ * b_) / det;
-      const int iq[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
-      for (int a = 0; a < 3; ++a)
-        for (int bb = a; bb < 3; ++bb) sm.Hinv[iq[a][bb] * F + f] = hi[a][bb];
-      float glA[3];
-      for (int a = 0; a < 3; ++a) {
-        glA[a] = lmb ? sm.acc.gl[a * F + f] : 0.f;
-        sm.glA[a * F + f] = glA[a];
-      }
-      float hpl[6][3], K[6][3];
-      for (int k = 0; k < 6; ++k)
-        for (int a = 0; a < 3; ++a) hpl[k][a] = sm.acc.Hpl[(3 * k + a) * F + f];
-      for (int k = 0; k < 6; ++k)
-        for (int bb = 0; bb < 3; ++bb) {
-          K[k][bb] = hpl[k][0] * hi[0][bb] + hpl[k][1] * hi[1][bb] + hpl[k][2] * hi[2][bb];
-          sm.K[(3 * k + bb) * F + f] = K[k][bb];
-        }
-      int q = 0;
-      for (int k = 0; k < 6; ++k)
-        for (int g = k; g < 6; ++g)
-          sm.part[(q++) * F + f] = K[k][0] * hpl[g][0] + K[k][1] * hpl[g][1] + K[k][2] * hpl[g][2];
-      for (int k = 0; k < 6; ++k)
-        sm.part[(21 + k) * F + f] = K[k][0] * glA[0] + K[k][1] * glA[1] + K[k][2] * glA[2];
     }
-    __syncthreads();
-    if (tid < 27) {
-      float acc = 0.f;
-      for (int f = 0; f < F; ++f) acc += sm.part[tid * F + f];
-      sm.ES[tid] = acc;
+    mdx = warp_max(mdx);
+    mx = warp_max(mx);
+    if (lane == 0) {
+      fx.mred[warp][0] = mdx;
+      fx.mred[warp][1] = mx;
     }
+    if (acc && tid < D) fx.x[tid] = fx.xt[tid];
     __syncthreads();
     if (tid == 0) {
-      // damped, Schur-reduced, Jacobi-equilibrated normal equations
-      float(*A)[D] = reinterpret_cast<float (*)[D]>(sm.A);
-      float sc[D], rhs[D];
-      for (int i = 0; i < D; ++i) {
-        const bool fi = sm.free[i] > 0.f;
-        const bool ci = i >= P0 && i < P0 + 6;
-        for (int j = 0; j < D; ++j) {
-          const bool cj = j >= P0 && j < P0 + 6;
-          const float hc = (ci && cj) ? sm.acc.Hc[(i - P0) * 6 + (j - P0)] : 0.f;
-          A[i][j] = (sm.acc.Hb[i * D + j] * (sm.free[i] * sm.free[j]) + hc) * (sm.free[i] * sm.free[j]);
-        }
-        const float dg = A[i][i];
-        A[i][i] = fi ? dg + lam * fmaxf(dg, 1e-12f) : 1.f;
-        rhs[i] = fi ? sm.acc.gb[i] * sm.free[i] + (ci ? sm.acc.gc[i - P0] : 0.f) : 0.f;
+      for (int w = 1; w < NWARPS; ++w) {
+        mdx = fmaxf(mdx, fx.mred[w][0]);
+        mx = fmaxf(mx, fx.mred[w][1]);
       }
-      int q = 0;
-      for (int k = 0; k < 6; ++k)
-        for (int g = k; g < 6; ++g) {
-          A[P0 + k][P0 + g] -= sm.ES[q];
-          if (g != k) A[P0 + g][P0 + k] -= sm.ES[q];
-          ++q;
-        }
-      for (int k = 0; k < 6; ++k) rhs[P0 + k] -= sm.ES[21 + k];
-      for (int i = 0; i < D; ++i) sc[i] = 1.f / sqrtf(fmaxf(A[i][i], 1e-20f));
-      for (int i = 0; i < D; ++i) {
-        for (int j = 0; j <= i; ++j) A[i][j] *= sc[i] * sc[j];
-        rhs[i] *= sc[i];
+      const float c = fx.c;
+      const float rel = fabsf(c - ct) / fmaxf(c, 1e-20f);
+      if (acc) {
+        fx.c = ct;
+        fx.cur = cur ^ 1;
       }
-      cholesky(A, D, frozen);
-      chol_solve(A, D, frozen, rhs);
-      bool finite = true;
-      for (int i = 0; i < D; ++i) {
-        sm.dx[i] = sc[i] * rhs[i];
-        finite = finite && isfinite(sm.dx[i]);
-      }
-      for (int i = 0; i < D; ++i) {
-        sm.dx[i] = finite ? sm.dx[i] * sm.free[i] : 0.f;
-        sm.xt[i] = sm.x[i] + sm.dx[i];
-      }
-      const float s1 = so3_wrap_scale(sm.xt + 3), s2 = so3_wrap_scale(sm.xt + 18);
-      for (int k = 0; k < 3; ++k) {
-        sm.xt[3 + k] *= s1;
-        sm.xt[18 + k] *= s2;
-      }
-    }
-    __syncthreads();
-    // landmark back-substitution
-    if (tid < F) {
-      const int f = tid;
-      const float lf = sm.lmf[f];
-      float rhs[3];
-      for (int a = 0; a < 3; ++a) {
-        float acc = sm.glA[a * F + f];
-        for (int k = 0; k < 6; ++k) acc -= sm.acc.Hpl[(3 * k + a) * F + f] * sm.dx[P0 + k];
-        rhs[a] = acc;
-      }
-      const int iq[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
-      for (int a = 0; a < 3; ++a) {
-        float d = 0.f;
-        for (int bb = 0; bb < 3; ++bb) d += sm.Hinv[iq[a][bb] * F + f] * rhs[bb];
-        d *= lf;
-        if (!isfinite(d)) d = 0.f;
-        sm.dxl[a * F + f] = d;
-        sm.wt[a * F + f] = sm.wld[a * F + f] + d;
-      }
-    }
-    __syncthreads();
-    linearize(s, cm, sm.xt, sm.wt, sm, sm.trial);
-    if (tid == 0) {
-      const float ct = sm.trial.cost[0] + sm.trial.cost[1];
-      const bool acc = ct < c;
-      rel = fabsf(c - ct) / fmaxf(c, 1e-20f);
-      if (acc) c = ct;
-      float lam_n = acc ? lam * 0.33f : lam * 4.f;
-      lam = fminf(fmaxf(lam_n, 1e-10f), 1e8f);
-      accept = acc ? 1.f : 0.f;
-    }
-    __syncthreads();
-    if (accept != 0.f) {
-      const Lin& a = sm.acc;
-      const Lin& t = sm.trial;
-      for (int e = tid; e < D * D; e += THREADS) a.Hb[e] = t.Hb[e];
-      if (tid < D) {
-        a.gb[tid] = t.gb[tid];
-        sm.x[tid] = sm.xt[tid];
-      }
-      if (tid < 36) a.Hc[tid] = t.Hc[tid];
-      if (tid < 6) a.gc[tid] = t.gc[tid];
-      if (tid < 2) a.cost[tid] = t.cost[tid];
-      for (int e = tid; e < 27 * F; e += THREADS) {
-        if (e < 6 * F) a.Hll[e] = t.Hll[e];
-        else if (e < 9 * F) a.gl[e - 6 * F] = t.gl[e - 6 * F];
-        else a.Hpl[e - 9 * F] = t.Hpl[e - 9 * F];
-      }
-      for (int e = tid; e < 3 * F; e += THREADS) sm.wld[e] = sm.wt[e];
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float mdx = 0.f, mx = 0.f;
-      for (int i = 0; i < D; ++i) {
-        mdx = fmaxf(mdx, fabsf(sm.dx[i]));
-        mx = fmaxf(mx, fabsf(sm.x[i]));
-      }
-      for (int e = 0; e < 3 * F; ++e) {
-        mdx = fmaxf(mdx, fabsf(sm.dxl[e]));
-        mx = fmaxf(mx, fabsf(sm.wld[e]));
-      }
+      const float lam = fminf(fmaxf(acc ? fx.lam * 0.33f : fx.lam * 4.f, 1e-10f), 1e8f);
+      fx.lam = lam;
       const bool xtol_hit = mdx < xtol * (mx + xtol);
-      const bool stalled = accept == 0.f && lam >= 1e8f;
-      done = (rel < ftol || xtol_hit || stalled) ? 1.f : 0.f;
+      const bool stalled = !acc && lam >= 1e8f;
+      fx.done = (rel < ftol || xtol_hit || stalled) ? 1 : 0;
     }
     __syncthreads();
+    PHASE(PH_ACCEPT);
   }
 
   // Schur reduction of frame 0 at the last accepted point (base rows only)
+  const int cur = fx.cur;
+  schur_frame0(fx.Hb[cur], fx.gb[cur], fx.b, dH_out + b * 225, dg_out + b * 15);
+  if (tid < D) x_out[b * D + tid] = fx.x[tid];
   if (tid == 0) {
-    schur_frame0(reinterpret_cast<float (*)[D]>(sm.acc.Hb), sm.acc.gb,
-                 reinterpret_cast<float (*)[D]>(sm.A), dH_out + b * 225, dg_out + b * 15);
-    for (int i = 0; i < D; ++i) x_out[b * D + i] = sm.x[i];
-    cost_out[b] = c;
+    cost_out[b] = fx.c;
     iters_out[b] = it;
   }
   for (int e = tid; e < 3 * F; e += THREADS)
-    world_out[(size_t)b * F * 3 + e] = sm.wld[(e % 3) * F + e / 3];
+    world_out[(size_t)b * F * 3 + e] = L.wl[cur][(e % 3) * F + e / 3];
 }
 
 }  // namespace
@@ -545,7 +596,9 @@ __global__ void __launch_bounds__(THREADS) cam_solve_kernel(
 // the camera's Tic (B,4,4), sqrt_info (B,2), world0 (B,F,3), lm_free (B,F),
 // obs (B,F,Wc,2), use (B,F,Wc), ring (B,Wc,6).  Outputs x (B,30),
 // world (B,F,3), cost (B,), dH (B,15,15), dg (B,15), iters (B,) int32.
-// Launches B blocks on `stream` and returns the launch's cudaError_t.
+// Launches B blocks on `stream` and returns the launch's cudaError_t.  The
+// kernel's dynamic shared-memory limit is raised to SMEM_MAX once per
+// process and device.
 extern "C" int liwslam_cam_solve(const float* x0, const float* free_, const float* imu_J,
                                  const float* imu_sqrtP, const float* imu_X, const float* prior_J,
                                  const float* prior_X, const float* T_il, const float* T_iw,
@@ -555,12 +608,20 @@ extern "C" int liwslam_cam_solve(const float* x0, const float* free_, const floa
                                  int F, int Wc, int max_iters, int frozen, float ftol, float xtol,
                                  float* x_out, float* world_out, float* cost_out, float* dH_out,
                                  float* dg_out, int* iters_out, void* stream) {
-  const size_t bytes = sizeof(float) * ((size_t)FIXED + 8 * (size_t)F * Wc + 131 * (size_t)F);
+  const size_t bytes =
+      sizeof(float) * ((size_t)FIXED + PER_FW * (size_t)F * Wc + PER_F * (size_t)F);
   if (B < 1 || F < 1 || F > F_MAX || Wc < 1 || Wc > WC_MAX || bytes > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(cam_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    e = cudaFuncSetAttribute(cam_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[dev] = true;
+  }
   cam_solve_kernel<<<B, THREADS, bytes, (cudaStream_t)stream>>>(
       x0, free_, imu_J, imu_sqrtP, imu_X, prior_J, prior_X, T_il, T_iw, wheel, scal, Tic,
       sqrt_info, world0, lm_free, obs, use, ring, F, Wc, max_iters, (uint32_t)frozen, ftol, xtol,

@@ -21,43 +21,58 @@
 // What bounds it on this card: nothing the card is rated for.  One system
 // at M = 64 is ~0.36 MFLOP per linearization (the dual-number Jacobian and
 // H = J^T J) and a 30x30 factorization per LM step, on ~7 KB of inputs:
-// tens of nanoseconds at the card's float32 rate, a few at its memory rate.  The
-// time is the latency of a dependent chain inside one block: linearize,
-// barrier, factor, barrier, linearize ... for ~3 LM iterations.
+// tens of nanoseconds at the card's float32 rate, a few at its memory
+// rate.  The time is the length of a dependent chain inside one block:
+// linearize, barrier, factor, barrier, linearize ... for up to max_iters
+// LM iterations, so what counts is the latency of each link, and the code
+// each link streams through the instruction cache.
 //
-// What the design does about it: everything stays in one launch and in
-// shared memory (no host round trip per iteration, no device memory
-// traffic after the first read).  The Jacobian is forward-mode with
-// dual numbers of a fixed tangent width of 6, seeded per factor on the
-// few columns the factor touches (laser rows: p1, q1; ground: one frame's
-// p, q; wheel: p0 q0 and p1 q1 in two passes; the IMU block in five passes
-// of 6 columns), so no 30-wide dual ever lives in registers.  Laser rows
-// run one match per thread on warps 1..3 while warp 0 runs the IMU, wheel,
-// ground and prior rows; H, g and the cost are then assembled by all
-// threads, each owning entries of the 30x30.  The factorizations are
-// small and serial and run on thread 0 from shared memory.  A faster
-// version (warp-parallel Cholesky, many systems per block) is later work.
-//
-// The dual numbers, the non-laser rows, the Cholesky and the frame-0 Schur
-// reduction live in solve_common.cuh, shared with kernel B4 (cam_solve.cu).
+// What the design does about it: one launch for the whole solve and the
+// prior, every intermediate in shared memory or registers, and each link
+// of the chain spread over the block (256 threads) so that no thread runs
+// a long serial loop.
+//   - Linearization (3 barriers): the base rows run one factor kind a warp
+//     and one tangent column a lane (solve_common.cuh base_rows: IMU
+//     alpha/beta, IMU gamma, wheel, ground, prior), while the top warps
+//     run the laser rows, a p1 pass and a q1 pass of each match a thread
+//     (dual numbers of width 3).  The IMU rows are whitened as a product
+//     W * raw, one entry a thread; the laser block's 28 sums over the 2M
+//     rows are one warp each, lanes striding the rows; H's lower triangle,
+//     g and the cost are then one entry a thread.
+//   - LM step (warp 0): lane i builds row i of the damped, equilibrated
+//     30x30 in registers and the warp factors it (solve_common.cuh
+//     warp_cholesky: pivot broadcast by a shuffle, column k broadcast
+//     through shared memory, the frozen steps elided: 24, or 18 in
+//     fast_mode), with the forward substitution in the same loop and the
+//     back substitution after it.  The convergence maxima are warp
+//     reductions, and the accepted linearization is kept by flipping
+//     between two buffers, not by copying.
+//   - Schur reduction (solve_common.cuh schur_frame0): the same warp
+//     factorization of the 15x15, its 16 right-hand sides one a lane, dH
+//     and dg one entry a thread.
+// Where the chain's cycles go now (M = 64, fast_mode, 8 iterations; H100,
+// tools/profile_torch_solves.py --phases): the factorizations ~40%, the
+// linearizations' rows ~22% (the wheel and IMU gamma lanes are the longest),
+// their sums and assembly ~17%, the back substitutions ~11%.
 
 #include "solve_common.cuh"
 
 namespace {
 
 constexpr int M_MAX = 256;  // laser matches per system
-constexpr int THREADS = 128;
 
 // laser factor (laser_factor.h:31-88) of match m: 2 rows (both endpoints),
-// tangents on columns 15..20 (p1, q1)
-__device__ void laser_rows(const Sys& s, const float* x, int m, Dual* out) {
+// tangents on p1 (columns 15..17, part 0) or on q1 (18..20, part 1)
+__device__ __forceinline__ void laser_rows(const Sys& s, const float* x, int m, int part, DualT<3>* out) {
+  using Dual = DualT<3>;
   const float* L = s.laser + m * 11;
   const F3 Ril = rot_of(s.T_il);
   const float til[3] = {s.T_il[3], s.T_il[7], s.T_il[11]};
-  const V3 p1 = X3(x, 15, 15), q1 = X3(x, 18, 15);
-  const M3 R1 = exp_so3(q1);
-  const M3 TR = mmf(R1, Ril);
-  const V3 tt = mvf(R1, til);
+  const int c0 = 15 + 3 * part;
+  const V3<3> p1 = X3<3>(x, 15, c0), q1 = X3<3>(x, 18, c0);
+  const M3<3> R1 = exp_so3(q1);
+  const M3<3> TR = mmf(R1, Ril);
+  const V3<3> tt = mvf(R1, til);
   const Dual tx = tt.x + p1.x, ty = tt.y + p1.y;
   const float a2x = L[2], a2y = L[3];
   const float dlx = a2x - L[0], dly = a2y - L[1];
@@ -78,68 +93,131 @@ __device__ void laser_rows(const Sys& s, const float* x, int m, Dual* out) {
 // ------------------------------------------------------ shared state ----
 
 struct Smem {
-  float x[D], xt[D], dx[D], free[D];
-  float Jnl[R_NL][D];  // non-laser Jacobian rows
-  float rnl[R_NL];
-  float LJ[2 * M_MAX][NW];  // laser rows: tangents on columns 15..20
+  BaseSm b;
+  float LJ[2 * M_MAX][6];  // laser rows: tangents on columns 15..20
   float Lr[2 * M_MAX];
-  float H[D][D], g[D];      // accepted linearization: J^T J, -J^T r
-  float Ht[D][D], gt[D];    // trial linearization
-  float A[D][D];            // factorization scratch (thread 0)
-  float y[D + 1];
+  float Lq[NQ];            // the laser rows' 6x6 block (21 upper entries), J^T r (6), |r|^2
+  float H[2][D * D], g[2][D];  // linearizations: [cur] accepted, [cur ^ 1] trial
+  float x[D], xt[D], dx[D], free[D];
   float c, ct, lam;
-  int done, accept;
+  int done, cur;
 };
 
-// (Ht, gt, ct) <- linearization at xs; all threads take part
-__device__ void linearize(const Sys& s, const float* xs, int M, Smem& sm, float (*Hout)[D],
-                          float* gout, float* cout) {
+// (H[k], g[k], *cost) <- linearization at xs; all threads take part
+__device__ void linearize(const Sys& s, const float* xs, int M, Smem& sm, int k, float* cost) {
   const int tid = threadIdx.x;
-  for (int e = tid; e < R_NL * D; e += THREADS) (&sm.Jnl[0][0])[e] = 0.f;
+  if (tid < 32 * BASE_WARPS) base_rows(s, xs, sm.b);
+  // laser items: a p1 pass and a q1 pass for every match, from the last
+  // thread down, so that the base-row warps take none at M <= 64
+  for (int item = THREADS - 1 - tid; item < 2 * M; item += THREADS) {
+    const int part = item / M, m = item % M;
+    DualT<3> r[2];
+    laser_rows(s, xs, m, part, r);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) sm.LJ[2 * m + e][3 * part + a] = r[e].d[a];
+      if (part == 0) sm.Lr[2 * m + e] = r[e].v;
+    }
+  }
+  PHASE_WARP();
   __syncthreads();
-  if (tid < 32) {
-    base_rows(s, xs, tid, sm.Jnl, sm.rnl);
-  } else {
-    for (int m = tid - 32; m < M; m += THREADS - 32) {
-      Dual r[2];
-      laser_rows(s, xs, m, r);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int j = 0; j < NW; ++j) sm.LJ[2 * m + e][j] = r[e].d[j];
-        sm.Lr[2 * m + e] = r[e].v;
+  PHASE(PH_ROWS);
+  whiten(sm.b);
+  // the laser block's 28 sums over the 2M rows: warp w takes sums w, w + 8,
+  // ..., its lanes a stride of rows each
+  {
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int q = warp; q < NQ; q += NWARPS) {
+      int a = 0, c = 0;
+      if (q < 21) upper6_pair(q, a, c);
+      float acc = 0.f;
+      for (int r = lane; r < 2 * M; r += 32) {
+        const float u = q < 21 ? sm.LJ[r][a] : (q < 27 ? sm.LJ[r][q - 21] : sm.Lr[r]);
+        const float v = q < 21 ? sm.LJ[r][c] : sm.Lr[r];
+        acc += u * v;
       }
+      acc = warp_sum(acc);
+      if (lane == 0) sm.Lq[q] = acc;
     }
   }
   __syncthreads();
-  // H = J^T J, g = -J^T r, cost = |r|^2 / 2; each thread owns entries
-  const int nl = 2 * M;
-  for (int e = tid; e < D * D + D + 1; e += THREADS) {
-    if (e < D * D) {
-      const int i = e / D, j = e % D;
-      float acc = 0.f;
-      for (int r = 0; r < R_NL; ++r) acc += sm.Jnl[r][i] * sm.Jnl[r][j];
-      if (i >= 15 && i < 21 && j >= 15 && j < 21)
-        for (int r = 0; r < nl; ++r) acc += sm.LJ[r][i - 15] * sm.LJ[r][j - 15];
-      Hout[i][j] = acc;
-    } else if (e < D * D + D) {
-      const int i = e - D * D;
-      float acc = 0.f;
-      for (int r = 0; r < R_NL; ++r) acc += sm.Jnl[r][i] * sm.rnl[r];
-      if (i >= 15 && i < 21)
-        for (int r = 0; r < nl; ++r) acc += sm.LJ[r][i - 15] * sm.Lr[r];
-      gout[i] = -acc;
+  PHASE(PH_REDUCE);
+  // H = J^T J (lower triangle, mirrored), g = -J^T r, cost = |r|^2 / 2;
+  // one entry a thread
+  float* H = sm.H[k];
+  float* g = sm.g[k];
+  for (int t = tid; t < D * (D + 1) / 2 + D + 1; t += THREADS) {
+    if (t < D * (D + 1) / 2) {
+      int i, j;
+      lower_pair(t, i, j);
+      float acc = base_jtj(sm.b, i, j);
+      if (j >= 15 && i < 21) acc += sm.Lq[upper6(j - 15, i - 15)];
+      H[i * D + j] = acc;
+      H[j * D + i] = acc;
+    } else if (t < D * (D + 1) / 2 + D) {
+      const int i = t - D * (D + 1) / 2;
+      float acc = base_jtr(sm.b, i);
+      if (i >= 15 && i < 21) acc += sm.Lq[21 + i - 15];
+      g[i] = -acc;
     } else {
-      float acc = 0.f;
-      for (int r = 0; r < R_NL; ++r) acc += sm.rnl[r] * sm.rnl[r];
-      for (int r = 0; r < nl; ++r) acc += sm.Lr[r] * sm.Lr[r];
-      *cout = 0.5f * acc;
+      *cost = 0.5f * (base_rtr(sm.b) + sm.Lq[27]);
     }
   }
   __syncthreads();
+  PHASE(PH_LIN);
 }
 
-__global__ void __launch_bounds__(THREADS) track_solve_kernel(
+// warp 0: the damped, equilibrated step from the accepted linearization
+// -> dx, and the trial point xt (SO(3)-wrapped)
+__device__ __forceinline__ void lm_step(Smem& sm, int cur, uint32_t frozen) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane < D ? lane : D - 1;
+  const float* H = sm.H[cur];
+  const float fi = sm.free[i];
+  const bool fb = fi > 0.f;
+  const float hd = H[i * D + i] * (fi * fi);
+  const float dd = fb ? hd + sm.lam * fmaxf(hd, 1e-12f) : 1.f;
+  float a[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) a[j] = j == i ? dd : H[i * D + j] * (fi * sm.free[j]);
+  float d = equilibrated_solve<D>(a, dd, fb ? sm.g[cur][i] : 0.f, frozen, sm.b.T) * fi;
+  if (!__all_sync(FULL, lane >= D || isfinite(d))) d = 0.f;
+  const float xt = so3_wrap_lane(sm.x[i] + d, i);
+  if (lane < D) {
+    sm.dx[lane] = d;
+    sm.xt[lane] = xt;
+  }
+}
+
+// warp 0, after the trial linearization: accept or reject, lambda, exits
+__device__ __forceinline__ void accept_step(Smem& sm, float ftol, float xtol) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane < D ? lane : D - 1;
+  const bool done = sm.done != 0;
+  const bool acc = (sm.ct < sm.c) && !done;
+  const float c_old = sm.c;
+  const float xi = acc ? sm.xt[i] : sm.x[i];
+  const float mdx = warp_max(lane < D ? fabsf(sm.dx[i]) : 0.f);
+  const float mx = warp_max(lane < D ? fabsf(xi) : 0.f);
+  __syncwarp();
+  if (lane < D) sm.x[lane] = xi;
+  if (lane == 0) {
+    if (acc) {
+      sm.c = sm.ct;
+      sm.cur ^= 1;
+    }
+    float lam = done ? sm.lam : (acc ? sm.lam * 0.33f : sm.lam * 4.f);
+    lam = fminf(fmaxf(lam, 1e-10f), 1e8f);
+    sm.lam = lam;
+    const float rel = fabsf(c_old - sm.ct) / fmaxf(c_old, 1e-20f);
+    const bool xtol_hit = mdx < xtol * (mx + xtol);
+    const bool stalled = !acc && lam >= 1e8f;
+    sm.done = (done || rel < ftol || xtol_hit || stalled) ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) track_solve_kernel(
     const float* __restrict__ x0, const float* __restrict__ free_, const float* __restrict__ imu_J,
     const float* __restrict__ imu_sqrtP, const float* __restrict__ imu_X,
     const float* __restrict__ prior_J, const float* __restrict__ prior_X,
@@ -165,6 +243,7 @@ __global__ void __launch_bounds__(THREADS) track_solve_kernel(
   s.scal = scal + b * 6;
   s.laser = laser + (size_t)b * M * 11;
 
+  PHASE_START();
   if (tid < D) {
     sm.x[tid] = s.x0[tid];
     sm.free[tid] = s.free[tid];
@@ -172,81 +251,32 @@ __global__ void __launch_bounds__(THREADS) track_solve_kernel(
   if (tid == 0) {
     sm.lam = 1e-4f;
     sm.done = 0;
+    sm.cur = 0;
   }
+  base_init(s, sm.b);
   __syncthreads();
-  linearize(s, sm.x, M, sm, sm.H, sm.g, &sm.c);
+  PHASE(PH_INIT);
+  linearize(s, sm.x, M, sm, 0, &sm.c);
 
   int it = 0;
+  // sm.done, sm.cur and sm.x are written by warp 0 before a barrier
   for (; it < max_iters; ++it) {
     if (early_exit && sm.done) break;
-    if (tid == 0) {
-      // damped, Jacobi-equilibrated normal equations over the free dims
-      float sc[D], rhs[D];
-      for (int i = 0; i < D; ++i) {
-        const bool fi = sm.free[i] > 0.f;
-        for (int j = 0; j < D; ++j) sm.A[i][j] = sm.H[i][j] * (sm.free[i] * sm.free[j]);
-        const float dg = sm.A[i][i];
-        sm.A[i][i] = fi ? dg + sm.lam * fmaxf(dg, 1e-12f) : 1.f;
-        rhs[i] = fi ? sm.g[i] : 0.f;
-      }
-      for (int i = 0; i < D; ++i) sc[i] = 1.f / sqrtf(fmaxf(sm.A[i][i], 1e-20f));
-      for (int i = 0; i < D; ++i) {
-        for (int j = 0; j <= i; ++j) sm.A[i][j] *= sc[i] * sc[j];
-        rhs[i] *= sc[i];
-      }
-      cholesky(sm.A, D, frozen);
-      chol_solve(sm.A, D, frozen, rhs);
-      bool finite = true;
-      for (int i = 0; i < D; ++i) {
-        sm.dx[i] = sc[i] * rhs[i] * sm.free[i];
-        finite = finite && isfinite(sm.dx[i]);
-      }
-      for (int i = 0; i < D; ++i) {
-        if (!finite) sm.dx[i] = 0.f;
-        sm.xt[i] = sm.x[i] + sm.dx[i];
-      }
-      const float s1 = so3_wrap_scale(sm.xt + 3), s2 = so3_wrap_scale(sm.xt + 18);
-      for (int k = 0; k < 3; ++k) {
-        sm.xt[3 + k] *= s1;
-        sm.xt[18 + k] *= s2;
-      }
-    }
+    const int cur = sm.cur;
+    if (tid < 32) lm_step(sm, cur, frozen);
     __syncthreads();
-    linearize(s, sm.xt, M, sm, sm.Ht, sm.gt, &sm.ct);
-    if (tid == 0) {
-      const bool done = sm.done != 0;
-      const bool acc = (sm.ct < sm.c) && !done;
-      const float c_old = sm.c;
-      if (acc) {
-        for (int i = 0; i < D; ++i) sm.x[i] = sm.xt[i];
-        sm.c = sm.ct;
-      }
-      float lam = done ? sm.lam : (acc ? sm.lam * 0.33f : sm.lam * 4.f);
-      lam = fminf(fmaxf(lam, 1e-10f), 1e8f);
-      sm.lam = lam;
-      const float rel = fabsf(c_old - sm.ct) / fmaxf(c_old, 1e-20f);
-      float mdx = 0.f, mx = 0.f;
-      for (int i = 0; i < D; ++i) {
-        mdx = fmaxf(mdx, fabsf(sm.dx[i]));
-        mx = fmaxf(mx, fabsf(sm.x[i]));
-      }
-      const bool xtol_hit = mdx < xtol * (mx + xtol);
-      const bool stalled = !acc && lam >= 1e8f;
-      sm.done = (done || rel < ftol || xtol_hit || stalled) ? 1 : 0;
-      sm.accept = acc ? 1 : 0;
-    }
+    PHASE(PH_STEP);
+    linearize(s, sm.xt, M, sm, cur ^ 1, &sm.ct);
+    if (tid < 32) accept_step(sm, ftol, xtol);
     __syncthreads();
-    if (sm.accept) {
-      for (int e = tid; e < D * D; e += THREADS) (&sm.H[0][0])[e] = (&sm.Ht[0][0])[e];
-      if (tid < D) sm.g[tid] = sm.gt[tid];
-    }
-    __syncthreads();
+    PHASE(PH_ACCEPT);
   }
 
   // Schur reduction of frame 0 at the solution (gn.marginalize, keep = 15)
+  const int cur = sm.cur;
+  schur_frame0(sm.H[cur], sm.g[cur], sm.b, dH_out + b * 225, dg_out + b * 15);
+  if (tid < D) x_out[b * D + tid] = sm.x[tid];
   if (tid == 0) {
-    schur_frame0(sm.H, sm.g, sm.A, dH_out + b * 225, dg_out + b * 15);
-    for (int i = 0; i < D; ++i) x_out[b * D + i] = sm.x[i];
     cost_out[b] = sm.c;
     iters_out[b] = it;
   }

@@ -35,10 +35,13 @@ from liwslam_torch.solve import cam_schur
 from liwslam_torch.solve import gn
 
 # the kernel's limits: landmarks and window slots per system, and the
-# shared memory one block may hold (H100: 227 KB)
+# shared memory one block may hold (H100: 227 KB); its shared layout in
+# floats: a fixed part, PER_FW a (slot, landmark) cell, PER_F a landmark
+# (csrc/cam_solve.cu; tests/test_torch_kernel_limits.py holds the two equal)
 F_MAX = 256
 WC_MAX = 32
 SMEM_MAX = 232448
+FIXED, PER_FW, PER_F = 5712, 8, 85
 
 
 class CamSolveInputs(NamedTuple):
@@ -56,7 +59,7 @@ class CamSolveInputs(NamedTuple):
 
 def smem_bytes(F: int, Wc: int) -> int:
     """Shared memory of one block of the kernel (see csrc/cam_solve.cu)."""
-    return 4 * (4160 + 8 * F * Wc + 131 * F)
+    return 4 * (FIXED + PER_FW * F * Wc + PER_F * F)
 
 
 def pack_inputs(x0, free, world0, lm_free, obs, use, ring_p, ring_q, data, consts, Tic, sqrt_info):

@@ -22,7 +22,11 @@ from liwslam_torch.eval import metrics as tmetrics
 from liwslam_torch.sim import world as tsim
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "liwslam_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (
+    sorted((ROOT / "liwslam_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("*torch*.py"))
+)
 
 
 def _modules():

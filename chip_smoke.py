@@ -20,7 +20,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    on the synthetic office loop track at bench.py's full size (1080-beam
    scans at 10 Hz, IMU 200 Hz, wheel 20 Hz, noise on, seed 1), with the
    kernels' launch counts set to 0 just before and read just after; checks
-   that both kernels ran, and the ATE against ground truth;
+   that both kernels ran, and the ATE against ground truth; then the same
+   run with B1's plain version in the loop (:func:`check_b1_along_path`);
 5. camera path: the same ``Frontend.run`` with ``enable_camera`` on the
    same track with bench.py's camera arm at 848x480 and 30 Hz (its pixel
    sigma scaled to the image, ``CAM_SIGMA_PX``), counts set to 0 just
@@ -30,11 +31,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
 6. B3 (pyramidal LK) against its plain version on 20 bench image pairs
    and a shifted textured image, and B4 (the camera joint solve) on a
    captured camera sub-step, a synthetic problem, a batch of three and the
-   (F, Wc) edges of its thread mapping and shared memory, timed like B1;
+   (F, Wc) edges of its thread mapping and shared memory, timed like B1,
+   and the single-view case (:func:`single_view_spread`);
 7. one JSON object ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error against its plain version, times and bound; B1's and
-   B4's rows also carry their fixed and per-iteration ms, the chain
-   estimate and ptxas's registers and spill bytes.
+   B4's rows also carry their fixed and per-iteration ms, registers and
+   local memory a thread, and ptxas's spill bytes (:func:`kernel_resources`).
 
 The last line is ``{"ok": true, "device": {...}}``.  No CPU fallback: the
 script exits non-zero when CUDA is not available.
@@ -55,17 +57,6 @@ import torch
 # the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
-# The LM kernels' chain estimate (us a link): the least time their
-# dependent chain in one block could take, from instruction latencies on
-# this card (~20-50 ns a sqrt, IEEE division or transcendental, ~12 ns a
-# shuffle or shared-memory load), not from its rates.  A linearization:
-# the longest lane (the IMU gamma rows: ~60 dependent dual-number ops, ~15
-# of them sqrt, division or trigonometric) and three barriers, ~2 us; with
-# the camera rows' three rounds of items, ~2.5 us.  An LM step: 24
-# factorization steps of a shuffle, a sqrt, a division and a load (~65 ns)
-# and 30 back-substitution steps (~40 ns), ~2.5 us; with B4's landmark step
-# and back-substitution, ~3.5 us.  The Schur reduction, ~1.5 us.
-CHAIN_US = dict(lin=2.0, step=2.5, cam_lin=2.5, cam_step=3.5, schur=1.5)
 
 
 class SmokeFailure(AssertionError):
@@ -476,33 +467,25 @@ def stack_inputs(inps):
     ])
 
 
-def ptxas_report(name, kernel):
-    """Registers, spill bytes (stores) and stack frame of ``kernel`` from
-    the ptxas report of source ``name``'s build; the spill stores of the
-    functions it calls are added in."""
+def kernel_resources(name):
+    """Registers and local memory (stack frame, spills included) a thread
+    of source ``name``'s kernel, as the loaded module reports them
+    (``liwslam_<name>_attributes``: cudaFuncGetAttributes), and the bytes
+    of spill stores in the ptxas report of the source's build in this
+    process, the functions the kernel calls included (None when this
+    process loaded an earlier build and so saw no report)."""
+    import ctypes
     import re
 
     from liwslam_torch.ops import _build
 
-    regs = stack = None
-    spill = 0
-    fn = entry = ""
-    for line in _build.build_info.get(name, {}).get("log", "").splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry = m.group(1)
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-        if m:
-            spill += int(m.group(2))
-            if kernel in fn:
-                stack = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and kernel in entry:
-            regs = int(m.group(1))
-    return dict(regs=regs, spill_bytes=spill, stack_bytes=stack)
+    fn = getattr(_build.load()[name], f"liwslam_{name}_attributes")
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = fn(ctypes.byref(regs), ctypes.byref(local))
+    check(err == 0, f"{name}: cudaFuncGetAttributes failed, cudaError_t {err}")
+    log = _build.build_info[name]["log"]
+    spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log)) if log else None
+    return dict(regs=regs.value, local_bytes=local.value, spill_bytes=spill)
 
 
 def check_track_solve(prm, dev):
@@ -536,7 +519,7 @@ def check_track_solve(prm, dev):
         lambda k: ts.lm_solve_track_batched(inp, max_iters=k, early_exit=False, frozen_dims=frozen),
         "track_solve_kernel",
     )
-    ptx = ptxas_report("track_solve", "track_solve_kernel")
+    rsc = kernel_resources("track_solve")
     M = inp.laser.shape[1]
     n_lin = itk + 1
     nbytes = sum(t.numel() * 4 for t in inp) + (30 + 1 + 225 + 15 + 1) * 4
@@ -552,13 +535,11 @@ def check_track_solve(prm, dev):
     # + scaling (~2000); Schur: 15x15 Cholesky, 16 solves, 15x15x15 product
     nops = n_lin * lin_ops + (n_lin - 1) * 12800 + (2300 + 16 * 450 + 2 * 3375)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
-    chain_ms = (n_lin * CHAIN_US["lin"] + (n_lin - 1) * CHAIN_US["step"] + CHAIN_US["schur"]) / 1e3
     print(
         f"B1 track_solve: M={M}, kernel {itk} / plain {itp} LM iterations, max |x err| {err:.3e} "
         f"(both modes, a batch of 3, M=1 and M={ts.M_MAX}), cost {costs[0]:.6g} vs {costs[1]:.6g}; "
         f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call; fixed {split['fixed_ms']:.4f} + "
-        f"{split['per_iter_ms']:.4f} an iteration), plain {plain_ms:.4f} ms a call, chain estimate "
-        f"{chain_ms:.4f} ms; ptxas {ptx}",
+        f"{split['per_iter_ms']:.4f} an iteration), plain {plain_ms:.4f} ms a call; {rsc}",
         flush=True,
     )
     return dict(
@@ -575,17 +556,26 @@ def check_track_solve(prm, dev):
         call_ms=call_ms,
         fixed_ms=split["fixed_ms"],
         per_iter_ms=split["per_iter_ms"],
-        chain_ms=chain_ms,
-        **ptx,
+        **rsc,
     )
 
 
 # --------------------------------------------------------- main path ----
 
 
-def run_main_path(prm, streams, dev):
-    """Frontend.run at bench size; returns (result, stats)."""
+def tracked_ate(res, streams, tracked, where):
+    """ATE (m, aligned) of the last ``tracked`` frames of a Frontend.run
+    result against the simulator's ground truth."""
     from liwslam_torch.eval import metrics
+
+    pairs = metrics.associate_by_time(res.t_us[-tracked:], streams.gt_t_us)
+    check(len(pairs) == tracked, f"{where}: frames without ground truth")
+    est = res.T_w_imu()[-tracked:][pairs[:, 0]]
+    return metrics.ate_rmse(est, streams.gt_T_w_imu[pairs[:, 1]], align=True)
+
+
+def run_main_path(prm, streams, dev):
+    """Frontend.run at bench size; returns (launches, ATE)."""
     from liwslam_torch.frontend.driver import Frontend
     from liwslam_torch.ops import extract as ext
     from liwslam_torch.ops import track_solve as ts
@@ -610,10 +600,7 @@ def run_main_path(prm, streams, dev):
     check(len(stamps) >= 2, "main path: need at least two chunks (one is warm-up)")
     fps = sum(n for _, n in stamps[1:]) / (stamps[-1][0] - stamps[0][0])
     check(np.all(np.isfinite(res.p)) and res.p.shape == (len(res.t_us), 3), "main path: bad poses")
-    est = res.T_w_imu()[n_init:]
-    pairs = metrics.associate_by_time(res.t_us[n_init:], streams.gt_t_us)
-    check(len(pairs) == tracked, "main path: frames without ground truth")
-    ate = metrics.ate_rmse(est[pairs[:, 0]], streams.gt_T_w_imu[pairs[:, 1]], align=True)
+    ate = tracked_ate(res, streams, tracked, "main path")
     check(launches["extract_lines"] >= n_init + tracked, f"B2 launches {launches} < {n_init} + {tracked}")
     check(launches["track_solve"] == tracked, f"B1 launches {launches} != {tracked} tracked frames")
     check(ate < 0.02, f"main path ATE {ate} m >= 0.02 m")
@@ -624,6 +611,72 @@ def run_main_path(prm, streams, dev):
         flush=True,
     )
     return launches, ate
+
+
+def check_b1_along_path(prm, streams, dev, laser_ate):
+    """The laser-only main path again with B1's plain version in the loop
+    (on the CPU, float32: ~0.1 s a call there against ~0.7 s on the card)
+    and the kernel launched beside it on each of the same inputs.  Prints
+    the plain loop's ATE beside the kernel loop's and, per tracked frame,
+    how far the kernel's solution lies from the plain version's (poses
+    x[15:21] and whole x) and whether their LM iterations agree; then, for
+    the four frames where the two lie farthest apart, where the plain
+    version run in float64 on the same inputs lands.  Checks the plain
+    loop's ATE < 0.02 m."""
+    from liwslam_torch.frontend.driver import Frontend
+    from liwslam_torch.ops import track_solve as ts
+
+    kernel = ts.lm_solve_track_batched
+    # per tracked frame: (pose err, x err, kernel iterations, plain
+    # iterations, the inputs on the CPU, the solve's options, kernel x,
+    # plain x)
+    per_frame = []
+    pose_err = lambda a, b: float((a[:, 15:21] - b[:, 15:21]).abs().max())
+
+    def plain_beside_kernel(inp, *, max_iters, ftol, xtol, early_exit, frozen_dims):
+        outk = kernel(inp, max_iters=max_iters, ftol=ftol, xtol=xtol, early_exit=early_exit, frozen_dims=frozen_dims)
+        cpu = type(inp)(*[t.cpu() for t in inp])
+        kw = dict(max_iters=max_iters, ftol=ftol, xtol=xtol, early_exit=early_exit)
+        outp = ts.lm_solve_track_plain(cpu, **kw)
+        xk, xp = outk[0].cpu().double(), outp[0].double()
+        per_frame.append((
+            pose_err(xk, xp), float((xk - xp).abs().max()), int(outk[4][0]), int(outp[4][0]), cpu, kw, xk, xp,
+        ))
+        return tuple(t.to(dev) for t in outp)
+
+    # the kernel's wrapper counts its launches on the module's name, which
+    # names this function while it runs
+    plain_beside_kernel.launches = 0
+    ts.lm_solve_track_batched = plain_beside_kernel
+    try:
+        t0 = time.perf_counter()
+        res = Frontend(prm, device=dev).run(streams, chunk_size=64)
+        wall = time.perf_counter() - t0
+    finally:
+        ts.lm_solve_track_batched = kernel
+    tracked = len(per_frame)
+    check(tracked > 0 and np.all(np.isfinite(res.p)), "B1 plain loop: no tracked frames or bad poses")
+    ate = tracked_ate(res, streams, tracked, "B1 plain loop")
+    check(ate < 0.02, f"B1 plain loop: ATE {ate} m >= 0.02 m")
+    pe, xe, itk, itp = (np.array(c) for c in list(zip(*per_frame))[:4])
+    same = itk == itp
+    print(
+        f"B1 along the main path: with the plain version in the loop ATE={ate:.4f}m (kernel loop "
+        f"{laser_ate:.4f}m, wall {wall:.1f}s); kernel vs plain on each of its {tracked} tracked frames' "
+        f"inputs: pose err median {np.median(pe):.3e} p99 {np.quantile(pe, 0.99):.3e} max {pe.max():.3e}, "
+        f"x err median {np.median(xe):.3e} max {xe.max():.3e}, LM iterations equal on {int(same.sum())}",
+        flush=True,
+    )
+    for k in np.argsort(-pe)[:4]:
+        _, _, ik, ip, cpu, kw, xk, xp = per_frame[k]
+        o64 = ts.lm_solve_track_plain(type(cpu)(*[t.double() for t in cpu]), **kw)
+        x64 = o64[0]
+        print(
+            f"  frame {k}: poses apart by kernel-plain {pe[k]:.3e}, kernel-plain64 {pose_err(xk, x64):.3e}, "
+            f"plain-plain64 {pose_err(xp, x64):.3e}; LM iterations kernel {ik}, plain {ip}, plain64 "
+            f"{int(o64[4][0])}",
+            flush=True,
+        )
 
 
 # ---------------------------------------------------------------- B3 ----
@@ -746,13 +799,15 @@ def check_lk(cprm, images, dev):
 # ---------------------------------------------------------------- B4 ----
 
 
-def b4_problem(prm, dev, F=48, Wc=8, n_free=40, seed=0):
+def b4_problem(prm, dev, F=48, Wc=8, n_free=40, seed=0, min_views=2):
     """A camera joint solve like tests/test_cam_solve.py's: the two-frame
     problem's IMU, wheel, ground and prior rows (no laser rows), F
     landmarks 3.5-6.5 m in front of the camera frame, Wc window slots (the
     older at poses perturbed from the camera frame's), observations with
-    1e-3 noise, 5% of the rows unused, the first ``n_free`` landmarks
-    free, the camera pose and the landmarks perturbed."""
+    1e-3 noise, 5% of the rows unused, those of the first ``n_free``
+    landmarks with at least ``min_views`` used rows free (the camera path
+    frees a landmark only with cam_min_obs views: with one, its depth is
+    unobservable), the camera pose and the landmarks perturbed."""
     from liwslam_torch.core import geometry as geo
     from liwslam_torch.ops import cam_solve, track_solve
 
@@ -774,7 +829,7 @@ def b4_problem(prm, dev, F=48, Wc=8, n_free=40, seed=0):
         c = (np.linalg.inv(T @ Tic) @ np.concatenate([world, np.ones((F, 1))], 1).T).T
         obs[:, w] = c[:, :2] / c[:, 2:3] + rng.normal(0, 1e-3, (F, 2))
     use = rng.random((F, Wc)) > 0.05
-    lm_free = np.arange(F) < n_free
+    lm_free = (np.arange(F) < n_free) & (use.sum(1) >= min_views)
     x0 = x_true.clone()
     x0[15:18] += f32([0.03, -0.02, 0.01])
     x0[18:21] += f32([0.01, -0.008, 0.015])
@@ -840,12 +895,44 @@ def _check_b4(inp, frozen, max_iters, name):
     return err, int(outk[5][0]), int(outp[5][0]), float(outk[2][0]), float(outp[2][0])
 
 
+def single_view_spread(prm, dev, frozen, max_iters):
+    """(F, Wc) = (48, 1) with 40 free landmarks, two systems (seeds 0, 1):
+    each landmark has one view, so its depth is unobservable and only the
+    damping pins it.  Runs the kernel, the plain version and the plain
+    version in float64 on the same inputs and prints how far the three
+    landmark solutions lie apart; checks the kernel's poses (atol 1e-3) and
+    cost (2%) against the plain version.  Its landmarks are not held to
+    _check_b4's 5e-3: the float32 and float64 runs of the plain version
+    already disagree by more."""
+    from liwslam_torch.ops import cam_solve as cs
+
+    inp = tilted(stack_inputs([b4_problem(prm, dev, F=48, Wc=1, seed=sd, min_views=1)[0] for sd in (0, 1)]))
+    to64 = lambda t: type(t)(*map(to64, t)) if isinstance(t, tuple) else t.double()
+    outk = cs.lm_solve_cam_batched(inp, max_iters=max_iters, frozen_dims=frozen)
+    outp = cs.lm_solve_cam_plain(inp, max_iters=max_iters)
+    out64 = cs.lm_solve_cam_plain(to64(inp), max_iters=max_iters)
+    lmf = inp.lm_free > 0
+    far = lambda a, b: float((a.double() - b.double())[lmf].abs().max())
+    pose = lambda a, b: float((a.double() - b.double())[:, 15:21].abs().max())
+    ck, cp = outk[2].double(), outp[2].double()
+    check(torch.isfinite(outk[0]).all() and torch.isfinite(outk[1]).all(), "B4 single view: non-finite output")
+    check(pose(outk[0], outp[0]) < 1e-3, f"B4 single view: pose err {pose(outk[0], outp[0])}")
+    check(bool(((ck - cp).abs() < 0.02 * cp.clamp(min=1e-3)).all()), f"B4 single view: cost {ck} vs plain {cp}")
+    print(
+        f"B4 single view (F=48, Wc=1, {int(lmf.sum())} free landmarks in 2 systems): landmarks apart by "
+        f"kernel-plain {far(outk[1], outp[1]):.3e}, kernel-plain64 {far(outk[1], out64[1]):.3e}, "
+        f"plain-plain64 {far(outp[1], out64[1]):.3e}; poses apart by kernel-plain {pose(outk[0], outp[0]):.3e}, "
+        f"kernel-plain64 {pose(outk[0], out64[0]):.3e}, plain-plain64 {pose(outp[0], out64[0]):.3e}",
+        flush=True,
+    )
+
+
 def check_cam_solve(prm, cprm, captured, dev):
     """Kernel B4 against its plain version on one camera sub-step's inputs
     captured from the camera main path, on the synthetic problem, on a
     batch of three different synthetic systems (the per-block indexing)
-    and at the edges of its thread mapping (F = 1, Wc = 1, and the largest
-    (F, Wc) that the shared memory admits at F = F_MAX and at Wc =
+    and at the edges of its thread mapping (F = 1, Wc = 1, Wc = 2, and the
+    largest (F, Wc) that the shared memory admits at F = F_MAX and at Wc =
     WC_MAX), all :func:`tilted`; timed on the captured one, with the fixed
     and per-iteration split of its device time."""
     from liwslam_torch.ops import cam_solve as cs
@@ -857,12 +944,13 @@ def check_cam_solve(prm, cprm, captured, dev):
     e1 = max(e1, _check_b4(tilted(stack_inputs(batch)), frozen, max_iters, "batch of 3")[0])
     wc_max_f = max(f for f in range(1, cs.F_MAX + 1) if cs.smem_bytes(f, cs.WC_MAX) <= cs.SMEM_MAX)
     f_max_wc = max(w for w in range(1, cs.WC_MAX + 1) if cs.smem_bytes(cs.F_MAX, w) <= cs.SMEM_MAX)
-    edges = ((1, 8), (48, 1), (cs.F_MAX, f_max_wc), (wc_max_f, cs.WC_MAX))
+    edges = ((1, 8), (48, 1), (48, 2), (cs.F_MAX, f_max_wc), (wc_max_f, cs.WC_MAX))
     for F, Wc in edges:
-        # with one window slot a landmark has a single view and no depth:
-        # its landmarks are frozen (the pose against fixed points)
-        inp_e, _ = b4_problem(prm, dev, F=F, Wc=Wc, n_free=F * 5 // 6 if Wc > 1 else 0)
+        # at Wc = 1 no landmark has the two views b4_problem frees it with:
+        # the pose against fixed points
+        inp_e, _ = b4_problem(prm, dev, F=F, Wc=Wc, n_free=max(1, F * 5 // 6))
         e1 = max(e1, _check_b4(tilted(inp_e), frozen, max_iters, f"F={F} Wc={Wc}")[0])
+    single_view_spread(prm, dev, frozen, max_iters)
     inp, frozen = captured
     inp = tilted(inp)
     e2, itk, itp, ck, cp = _check_b4(inp, frozen, max_iters, "bench sub-step")
@@ -871,7 +959,7 @@ def check_cam_solve(prm, cprm, captured, dev):
     ms = kernel_ms(lambda: cs.lm_solve_cam_batched(inp, **kw), "cam_solve_kernel")
     plain_ms = time_ms(lambda: cs.lm_solve_cam_plain(inp, max_iters=max_iters), n=10, warm=1)
     split = iteration_split(lambda k: cs.lm_solve_cam_batched(inp, max_iters=k, frozen_dims=frozen), "cam_solve_kernel")
-    ptx = ptxas_report("cam_solve", "cam_solve_kernel")
+    rsc = kernel_resources("cam_solve")
     F, Wc = inp.obs.shape[1:3]
     n_use = int(inp.use.sum())
     n_lin = itk + 1
@@ -887,13 +975,12 @@ def check_cam_solve(prm, cprm, captured, dev):
     lin_ops += 7 * 150 * (n_use + F) + F * (30 * Wc + 120)
     nops = n_lin * lin_ops + (n_lin - 1) * (F * 310 + 12800) + 16300
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
-    chain_ms = (n_lin * CHAIN_US["cam_lin"] + (n_lin - 1) * CHAIN_US["cam_step"] + CHAIN_US["schur"]) / 1e3
     print(
         f"B4 cam_solve: F={F}, Wc={Wc}, {n_use} camera rows used, kernel {itk} / plain {itp} LM iterations, "
         f"max |x, landmark err| {max(e1, e2):.3e} (bench sub-step, synthetic, a batch of 3, (F, Wc) = "
         f"{', '.join(map(str, edges))}), cost {ck:.6g} vs {cp:.6g}; kernel {ms:.4f} ms on the device "
         f"({call_ms:.4f} ms a call; fixed {split['fixed_ms']:.4f} + {split['per_iter_ms']:.4f} an iteration), "
-        f"plain {plain_ms:.4f} ms a call, chain estimate {chain_ms:.4f} ms; ptxas {ptx}",
+        f"plain {plain_ms:.4f} ms a call; {rsc}",
         flush=True,
     )
     return dict(
@@ -910,8 +997,7 @@ def check_cam_solve(prm, cprm, captured, dev):
         call_ms=call_ms,
         fixed_ms=split["fixed_ms"],
         per_iter_ms=split["per_iter_ms"],
-        chain_ms=chain_ms,
-        **ptx,
+        **rsc,
     )
 
 
@@ -925,7 +1011,6 @@ def run_camera_path(cprm, streams, dev, laser_ate):
     camera frame after the init window), the camera gates of
     tests/test_camera_e2e.py and the ATE.  Returns (launches, one captured
     B4 input)."""
-    from liwslam_torch.eval import metrics
     from liwslam_torch.frontend.driver import Frontend
     from liwslam_torch.ops import cam_solve, lk
     from liwslam_torch.ops import extract as ext
@@ -981,10 +1066,7 @@ def run_camera_path(cprm, streams, dev, laser_ate):
     check(np.median(res.cam_n_tracked) >= 5, f"camera path: median tracked {np.median(res.cam_n_tracked)} < 5")
     check(res.cam_n_ready.max() >= 3, f"camera path: max ready {res.cam_n_ready.max()} < 3")
     # the tracked laser frames, as the laser-only path measures them
-    pairs = metrics.associate_by_time(res.t_us[-tracked:], streams.gt_t_us)
-    check(len(pairs) == tracked, "camera path: frames without ground truth")
-    est = res.T_w_imu()[-tracked:][pairs[:, 0]]
-    ate = metrics.ate_rmse(est, streams.gt_T_w_imu[pairs[:, 1]], align=True)
+    ate = tracked_ate(res, streams, tracked, "camera path")
     check(ate < 0.02, f"camera path ATE {ate} m >= 0.02 m")
     check(ate <= max(1.5 * laser_ate, 0.01), f"camera path ATE {ate} m > max(1.5 x laser-only {laser_ate}, 0.01)")
     print(
@@ -1019,6 +1101,8 @@ def main():
     _build.load()
     ptxas = []
     for name, info in _build.build_info.items():
+        if not info["log"]:
+            ptxas.append(f"{name}: loaded from an earlier build")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 ptxas.append(f"{name}: {line.strip()}")
@@ -1040,6 +1124,7 @@ def main():
 
     rows = [check_extract(prm, frames, dev), check_track_solve(prm, dev)]
     launches, laser_ate = run_main_path(prm, streams, dev)
+    check_b1_along_path(prm, streams, dev, laser_ate)
     cam_launches, captured = run_camera_path(cprm, streams, dev, laser_ate)
     rows += [check_lk(cprm, streams.cam_images, dev), check_cam_solve(prm, cprm, captured, dev)]
     for r in rows:

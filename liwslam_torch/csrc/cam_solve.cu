@@ -58,11 +58,10 @@
 //     reductions and one block step; the accepted linearization and
 //     landmarks are kept by flipping between two buffers, not by copying;
 //   - the Schur reduction of frame 0 is B1's (schur_frame0).
-// Where the chain's cycles go now (the synthetic F = 48, Wc = 8 problem,
-// 8 iterations; H100, tools/profile_torch_solves.py --phases): the
-// factorizations ~32%, the linearizations' rows ~27% (camera items and the
-// wheel lanes), their sums and assembly ~13%, the back substitutions ~10%,
-// the landmark steps ~7%.
+// Where the time goes now (a camera sub-step of the main path, F = 48,
+// Wc = 8; H100, chip_smoke.py's iteration_split over max_iters = 0..8):
+// ~0.019 ms fixed (the first linearization and the Schur reduction) and
+// ~0.022 ms an LM iteration.
 //
 // Limits: F <= F_MAX landmarks (one thread each), Wc <= WC_MAX window
 // slots, and the dynamic shared memory
@@ -226,9 +225,7 @@ __device__ void linearize(const Sys& s, const Cam& cm, const float* xs, const fl
       }
     }
   }
-  PHASE_WARP();
   __syncthreads();
-  PHASE(PH_ROWS);
   whiten(fx.b);
   // landmark blocks and each landmark's shares of the pose block: 21 upper
   // entries, 6 of -J^T r, the camera cost
@@ -285,7 +282,6 @@ __device__ void linearize(const Sys& s, const Cam& cm, const float* xs, const fl
   }
   warp_partials<NQ>(v, fx.b);
   __syncthreads();
-  PHASE(PH_REDUCE);
   // base normal equations (lower triangle, mirrored), the camera pose
   // block; one entry a thread
   float* Hb = fx.Hb[k];
@@ -318,7 +314,6 @@ __device__ void linearize(const Sys& s, const Cam& cm, const float* xs, const fl
     }
   }
   __syncthreads();
-  PHASE(PH_LIN);
 }
 
 // landmark f (one thread each): damp and invert its block, and its shares
@@ -486,7 +481,6 @@ __global__ void __launch_bounds__(THREADS, 1) cam_solve_kernel(
   cm.Wc = Wc;
   const Lm L = lm_layout(smem, F, Wc);
 
-  PHASE_START();
   if (tid < D) {
     fx.x[tid] = s.x0[tid];
     fx.free[tid] = s.free[tid];
@@ -500,7 +494,6 @@ __global__ void __launch_bounds__(THREADS, 1) cam_solve_kernel(
   }
   base_init(s, fx.b);
   __syncthreads();
-  PHASE(PH_INIT);
   linearize(s, cm, fx.x, L.wl[0], smem, 0);
   if (tid == 0) fx.c = fx.cost[0][0] + fx.cost[0][1];
   __syncthreads();
@@ -518,17 +511,14 @@ __global__ void __launch_bounds__(THREADS, 1) cam_solve_kernel(
     if (tid < F) landmark_step(L, F, tid, cur, fx.lam, v);
     warp_partials<27>(v, fx.b);
     __syncthreads();
-    PHASE(PH_LANDMARK);
     if (warp == 0) {
       if (lane < 27) fx.ES[lane] = block_total(fx.b, lane);
       __syncwarp();
       lm_step(fx, cur, frozen);
     }
     __syncthreads();
-    PHASE(PH_STEP);
     if (tid < F) back_substitute(fx, L, F, tid, cur);
     __syncthreads();
-    PHASE(PH_BACKSUB);
     linearize(s, cm, fx.xt, L.wl[cur ^ 1], smem, cur ^ 1);
     // accept or reject; the maxima of the steps and of the accepted states
     const float ct = fx.cost[cur ^ 1][0] + fx.cost[cur ^ 1][1];
@@ -572,7 +562,6 @@ __global__ void __launch_bounds__(THREADS, 1) cam_solve_kernel(
       fx.done = (rel < ftol || xtol_hit || stalled) ? 1 : 0;
     }
     __syncthreads();
-    PHASE(PH_ACCEPT);
   }
 
   // Schur reduction of frame 0 at the last accepted point (base rows only)
@@ -627,4 +616,17 @@ extern "C" int liwslam_cam_solve(const float* x0, const float* free_, const floa
       sqrt_info, world0, lm_free, obs, use, ring, F, Wc, max_iters, (uint32_t)frozen, ftol, xtol,
       x_out, world_out, cost_out, dH_out, dg_out, iters_out);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers a thread and local memory a thread (its stack
+// frame, spills included) as the loaded module reports them; returns the
+// cudaError_t of the query.
+extern "C" int liwslam_cam_solve_attributes(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, cam_solve_kernel);
+  if (e == cudaSuccess) {
+    *regs = a.numRegs;
+    *local_bytes = (int)a.localSizeBytes;
+  }
+  return (int)e;
 }

@@ -496,45 +496,6 @@ __device__ __forceinline__ void ground_rows(const Sys& s, const float* x, int f,
   out[1] = s.scal[3] * ang * gw;
 }
 
-// ---------------------------------------------------------- phase clock --
-
-// Off unless the kernel is built with -DLIWSLAM_PHASE_CLOCK (then thread 0
-// of block 0 stamps clock64() with a tag at each link of the chain, and
-// lane 0 of every warp of block 0 at the end of its share of the first
-// linearization's rows; tools/profile_torch_solves.py --phases reads them
-// through liwslam_phase_clock).  Built without it, PHASE() is nothing.
-constexpr int PHASE_MAX = 256;
-#ifdef LIWSLAM_PHASE_CLOCK
-__device__ long long phase_clock[PHASE_MAX];
-__device__ int phase_tag[PHASE_MAX];
-__device__ int phase_n;
-__device__ long long phase_warp[32];
-__device__ __forceinline__ void PHASE(int tag) {
-  if (threadIdx.x == 0 && blockIdx.x == 0 && phase_n < PHASE_MAX) {
-    phase_clock[phase_n] = clock64();
-    phase_tag[phase_n] = tag;
-    ++phase_n;
-  }
-}
-__device__ __forceinline__ void PHASE_START() {
-  if (threadIdx.x == 0 && blockIdx.x == 0) phase_n = 0;
-  PHASE(0);
-}
-__device__ __forceinline__ void PHASE_WARP() {
-  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) phase_warp[threadIdx.x >> 5] = clock64();
-}
-#else
-__device__ __forceinline__ void PHASE(int) {}
-__device__ __forceinline__ void PHASE_START() {}
-__device__ __forceinline__ void PHASE_WARP() {}
-#endif
-// tags
-enum : int {
-  PH_START = 0, PH_INIT = 1, PH_ROWS = 2, PH_REDUCE = 3, PH_LIN = 4, PH_LANDMARK = 5,
-  PH_STEP = 6, PH_BACKSUB = 7, PH_ACCEPT = 8, PH_SCHUR_FACTOR = 9, PH_END = 10,
-  PH_STEP_ROW = 11, PH_STEP_FACTOR = 12, PH_STEP_SOLVE = 13,
-};
-
 // ------------------------------------------------------- warp helpers --
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -819,11 +780,8 @@ __device__ __forceinline__ float equilibrated_solve(float (&a)[N], float dd, flo
 #pragma unroll
   for (int j = 0; j < N; ++j) a[j] *= sc * __shfl_sync(FULL, sc, j);
   float r = b * sc;
-  PHASE(PH_STEP_ROW);
   warp_cholesky<N, true>(a, r, skip, T);
-  PHASE(PH_STEP_FACTOR);
   warp_back_substitute<N>(T, r, skip);
-  PHASE(PH_STEP_SOLVE);
   return sc * r;
 }
 
@@ -891,7 +849,6 @@ __device__ void schur_frame0(const float* H, const float* g, BaseSm& b, float* d
     }
   }
   __syncthreads();
-  PHASE(PH_SCHUR_FACTOR);
   for (int e = tid; e < 240; e += THREADS) {
     const int i = e < 225 ? e / 15 : e - 225, j = e < 225 ? e % 15 : 15;
     float acc = 0.f;
@@ -905,22 +862,6 @@ __device__ void schur_frame0(const float* H, const float* g, BaseSm& b, float* d
     const int i = e / 15, j = e % 15;
     dH[e] = 0.5f * (b.dHt[i * 15 + j] + b.dHt[j * 15 + i]);
   }
-  PHASE(PH_END);
 }
 
 }  // namespace
-
-#ifdef LIWSLAM_PHASE_CLOCK
-// the phase clock of the last launch: n stamps and tags, and the warps'
-// stamps; returns n, or -1 on a copy error
-extern "C" int liwslam_phase_clock(long long* clocks, int* tags, long long* warps) {
-  int n = 0;
-  if (cudaMemcpyFromSymbol(&n, phase_n, sizeof(int)) != cudaSuccess) return -1;
-  if (n > PHASE_MAX) n = PHASE_MAX;
-  if (cudaMemcpyFromSymbol(clocks, phase_clock, n * sizeof(long long)) != cudaSuccess ||
-      cudaMemcpyFromSymbol(tags, phase_tag, n * sizeof(int)) != cudaSuccess ||
-      cudaMemcpyFromSymbol(warps, phase_warp, 32 * sizeof(long long)) != cudaSuccess)
-    return -1;
-  return n;
-}
-#endif

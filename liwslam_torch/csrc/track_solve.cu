@@ -50,10 +50,10 @@
 //   - Schur reduction (solve_common.cuh schur_frame0): the same warp
 //     factorization of the 15x15, its 16 right-hand sides one a lane, dH
 //     and dg one entry a thread.
-// Where the chain's cycles go now (M = 64, fast_mode, 8 iterations; H100,
-// tools/profile_torch_solves.py --phases): the factorizations ~40%, the
-// linearizations' rows ~22% (the wheel and IMU gamma lanes are the longest),
-// their sums and assembly ~17%, the back substitutions ~11%.
+// Where the time goes now (M = 64, fast_mode; H100, chip_smoke.py's
+// iteration_split over max_iters = 0..8): ~0.017 ms fixed (the first
+// linearization and the Schur reduction) and ~0.018 ms an LM iteration (a
+// factorization, its solves and a linearization).
 
 #include "solve_common.cuh"
 
@@ -120,9 +120,7 @@ __device__ void linearize(const Sys& s, const float* xs, int M, Smem& sm, int k,
       if (part == 0) sm.Lr[2 * m + e] = r[e].v;
     }
   }
-  PHASE_WARP();
   __syncthreads();
-  PHASE(PH_ROWS);
   whiten(sm.b);
   // the laser block's 28 sums over the 2M rows: warp w takes sums w, w + 8,
   // ..., its lanes a stride of rows each
@@ -142,7 +140,6 @@ __device__ void linearize(const Sys& s, const float* xs, int M, Smem& sm, int k,
     }
   }
   __syncthreads();
-  PHASE(PH_REDUCE);
   // H = J^T J (lower triangle, mirrored), g = -J^T r, cost = |r|^2 / 2;
   // one entry a thread
   float* H = sm.H[k];
@@ -165,7 +162,6 @@ __device__ void linearize(const Sys& s, const float* xs, int M, Smem& sm, int k,
     }
   }
   __syncthreads();
-  PHASE(PH_LIN);
 }
 
 // warp 0: the damped, equilibrated step from the accepted linearization
@@ -243,7 +239,6 @@ __global__ void __launch_bounds__(THREADS, 1) track_solve_kernel(
   s.scal = scal + b * 6;
   s.laser = laser + (size_t)b * M * 11;
 
-  PHASE_START();
   if (tid < D) {
     sm.x[tid] = s.x0[tid];
     sm.free[tid] = s.free[tid];
@@ -255,7 +250,6 @@ __global__ void __launch_bounds__(THREADS, 1) track_solve_kernel(
   }
   base_init(s, sm.b);
   __syncthreads();
-  PHASE(PH_INIT);
   linearize(s, sm.x, M, sm, 0, &sm.c);
 
   int it = 0;
@@ -265,11 +259,9 @@ __global__ void __launch_bounds__(THREADS, 1) track_solve_kernel(
     const int cur = sm.cur;
     if (tid < 32) lm_step(sm, cur, frozen);
     __syncthreads();
-    PHASE(PH_STEP);
     linearize(s, sm.xt, M, sm, cur ^ 1, &sm.ct);
     if (tid < 32) accept_step(sm, ftol, xtol);
     __syncthreads();
-    PHASE(PH_ACCEPT);
   }
 
   // Schur reduction of frame 0 at the solution (gn.marginalize, keep = 15)
@@ -302,4 +294,17 @@ extern "C" int liwslam_track_solve(const float* x0, const float* free_, const fl
       max_iters, (uint32_t)frozen, early_exit, ftol, xtol, x_out, cost_out, dH_out, dg_out,
       iters_out);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers a thread and local memory a thread (its stack
+// frame, spills included) as the loaded module reports them; returns the
+// cudaError_t of the query.
+extern "C" int liwslam_track_solve_attributes(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, track_solve_kernel);
+  if (e == cudaSuccess) {
+    *regs = a.numRegs;
+    *local_bytes = (int)a.localSizeBytes;
+  }
+  return (int)e;
 }

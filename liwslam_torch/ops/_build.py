@@ -39,8 +39,7 @@ FLAGS = (
 
 _loaded: dict = {}
 # per source: seconds spent compiling in this process (0.0 when loaded from
-# an earlier build) and the compiler's output (ptxas register/spill report,
-# kept beside the library as <lib>.log)
+# an earlier build) and the compiler's output (ptxas register/spill report)
 build_info: dict = {}
 
 
@@ -110,15 +109,10 @@ def load() -> dict:
             if p.returncode != 0:
                 failed.append(f"--- nvcc {n}.cu (exit {p.returncode}) ---\n{out}")
             else:
-                with open(paths[n] + ".log", "w") as fh:
-                    fh.write(out)
                 os.replace(tmp, paths[n])
         if failed:
             raise RuntimeError("liwslam_torch: kernel build failed\n" + "\n".join(failed))
     for n in todo:
-        if n not in build_info:
-            log = paths[n] + ".log"
-            with open(log) if os.path.isfile(log) else open(os.devnull) as fh:
-                build_info[n] = {"seconds": 0.0, "log": fh.read()}
+        build_info.setdefault(n, {"seconds": 0.0, "log": ""})
         _loaded[n] = ctypes.CDLL(paths[n])
     return _loaded

@@ -104,18 +104,13 @@ def test_smem_bytes_is_the_kernels_formula(F, Wc):
     assert (want <= env["SMEM_MAX"]) == admitted
 
 
-def test_phase_clock_tags_match_the_profiling_tool():
-    """tools/profile_torch_solves.py names the kernels' phase-clock tags by
-    their number: one name a tag, in the enum's order."""
-    import importlib.util
-
-    src = _src("solve_common.cuh")
-    body = re.search(r"enum : int \{(.*?)\};", src, re.S).group(1)
-    tags = dict((name, int(v)) for name, v in re.findall(r"(PH_\w+) = (\d+)", body))
-    assert sorted(tags.values()) == list(range(len(tags)))
-    path = CSRC.parents[1] / "tools" / "profile_torch_solves.py"
-    spec = importlib.util.spec_from_file_location("profile_torch_solves", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    assert len(tool.PHASES) == len(tags)
-    assert tool.PHASES[tags["PH_ROWS"]] == "rows" and tool.PHASES[tags["PH_STEP_FACTOR"]] == "LM step factor"
+@pytest.mark.parametrize("name", ["track_solve", "cam_solve"])
+def test_attribute_query_reports_the_launched_kernel(name):
+    """``liwslam_<name>_attributes`` (read by chip_smoke.kernel_resources)
+    queries the kernel that ``liwslam_<name>`` launches."""
+    src = _src(name + ".cu")
+    launched = re.findall(r"(\w+_kernel)<<<", src)
+    query = re.search(r'extern "C" int liwslam_%s_attributes\(int\* regs, int\* local_bytes\) \{(.*?)\n\}' % name, src, re.S)
+    assert launched == [name + "_kernel"] and query
+    assert "cudaFuncGetAttributes(&a, %s_kernel)" % name in query.group(1)
+    assert "a.numRegs" in query.group(1) and "a.localSizeBytes" in query.group(1)

@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port (``liwslam_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent _archive/<tree>] [--b2-threads 32,256] [--b3-warps 1,2]
 
 Phases, one line each (any failed check raises and the exit code is not 0):
 
@@ -8,7 +8,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
 2. build: builds (or loads) the hand-written kernels from ``liwslam_torch/
    csrc`` and prints the build seconds and ptxas's register/spill report;
 3. kernels against their plain PyTorch versions on the card, on the same
-   inputs: B2 (line extraction) on 20 scans of the bench track, B1 (the
+   inputs: B2 (line extraction) on 20 scans of the bench track and at the
+   edges of its thread mapping (:func:`check_extract_edges`), B1 (the
    tracking solve) on a two-frame problem with 64 line matches in both
    tracking modes (``fast_mode`` freezes more dims), on a batch of three
    different systems and at M = 1 and M = M_MAX; each kernel is timed by
@@ -28,15 +29,22 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    before and read just after; checks that B1-B4 ran as often as
    the stream asks, the camera gates of tests/test_camera_e2e.py and the
    ATE (< 0.02 m and within 1.5x the laser-only path's);
-6. B3 (pyramidal LK) against its plain version on 20 bench image pairs
-   and a shifted textured image, and B4 (the camera joint solve) on a
+6. B3 (pyramidal LK) against its plain version on 20 bench image pairs,
+   a shifted textured image and the edges of its thread mapping
+   (:func:`check_lk_edges`), and B4 (the camera joint solve) on a
    captured camera sub-step, a synthetic problem, a batch of three and the
    (F, Wc) edges of its thread mapping and shared memory, timed like B1,
    and the single-view case (:func:`single_view_spread`);
-7. one JSON object ``{"kernels": [...]}`` with each kernel's launches on its
-   main path, error against its plain version, times and bound; B1's and
-   B4's rows also carry their fixed and per-iteration ms, registers and
-   local memory a thread, and ptxas's spill bytes (:func:`kernel_resources`).
+7. with ``--parent`` (a parent tree unpacked under ``_archive/``),
+   ``--b2-threads`` or ``--b3-warps``, B2 and B3 as that tree's sources,
+   B2 at other block sizes or B3 at other warps a track, built by hand and
+   timed in turns with this tree's (:func:`time_in_turns`: parent, change,
+   change, parent);
+8. one JSON object ``{"kernels": [...]}`` with each kernel's launches on its
+   main path, error against its plain version, times and bound, registers
+   and local memory a thread, and ptxas's spill bytes
+   (:func:`kernel_resources`); B1's and B4's rows also carry their fixed
+   and per-iteration ms.
 
 The last line is ``{"ok": true, "device": {...}}``.  No CPU fallback: the
 script exits non-zero when CUDA is not available.
@@ -166,10 +174,11 @@ def kernel_ms(fn, kernel, n=60):
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    durs = []
-    # the profiler may drop a few activity records of a run (seen for
-    # B3's 16 us launches): up to three profiled runs, until n are recorded
-    for _ in range(3):
+    durs, runs = [], 12
+    # the profiler may drop activity records of a run (seen for B3's 16 us
+    # launches, and once three quarters of B4's in a sweep of 20): up to
+    # `runs` profiled runs, until n are recorded
+    for _ in range(runs):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
                 fn()
@@ -181,7 +190,7 @@ def kernel_ms(fn, kernel, n=60):
         ]
         if len(durs) >= n:
             break
-    check(len(durs) >= n, f"profiler saw {len(durs)} launches of {kernel} in three profiled runs of {n}")
+    check(len(durs) >= n, f"profiler saw {len(durs)} launches of {kernel} in {runs} profiled runs of {n}")
     return statistics.median(durs[:n])
 
 
@@ -228,7 +237,9 @@ def greedy_align(pa, pb, atol):
 def check_extract(prm, frames, dev):
     """Kernel B2 against extract_lines_plain on 20 bench scans (1080 noisy
     beams): the CPU test's alignment tolerances (atol 1 cm, line misses <=
-    3%, corner misses <= 5%, counts within 1 / 2 per scan)."""
+    3%, corner misses <= 5%, counts within 1 / 2 per scan).  As a witness of
+    the endpoints' rounding, the kernel's lines and the plain version's are
+    also aligned with the plain version's in float64."""
     from liwslam_torch.frontend import scan
     from liwslam_torch.ops import extract as ext
 
@@ -241,10 +252,12 @@ def check_extract(prm, frames, dev):
     )
     sel = np.linspace(0, len(frames) - 1, 20).astype(int)
     n_lines = line_miss = n_corners = corner_miss = 0
-    err = 0.0
+    err = err64 = err_plain64 = 0.0
     for k in sel:
         pts = torch.as_tensor(frames[k].points, device=dev)
         valid = torch.as_tensor(frames[k].point_valid, device=dev)
+        e1, e2, lv, _ = ext.extract_lines_plain(pts.double(), valid, **kw)
+        l64 = torch.cat([e1, e2], 1).cpu().numpy()[lv.cpu().numpy()]
         outs = []
         for fn in (ext.extract_lines, ext.extract_lines_plain):
             e1, e2, lv, gap = fn(pts, valid, **kw)
@@ -261,9 +274,12 @@ def check_extract(prm, frames, dev):
         n_corners += max(len(ca), len(cb))
         corner_miss += cmiss
         err = max(err, e)
+        err64 = max(err64, greedy_align(la, l64, 1e-2)[2])
+        err_plain64 = max(err_plain64, greedy_align(lb, l64, 1e-2)[2])
     check(n_lines > 0, "B2: no lines extracted")
     check(line_miss <= max(2, 0.03 * n_lines), f"B2: {line_miss} of {n_lines} lines unmatched")
     check(corner_miss <= max(2, 0.05 * n_corners), f"B2: {corner_miss} of {n_corners} corners unmatched")
+    edge_err = check_extract_edges(prm, frames, dev)
 
     pts = torch.as_tensor(frames[sel[0]].points, device=dev)
     valid = torch.as_tensor(frames[sel[0]].point_valid, device=dev)
@@ -279,10 +295,12 @@ def check_extract(prm, frames, dev):
     # from the source
     nops = 230 * N
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
+    rsc = kernel_resources("extract_lines")
     print(
         f"B2 extract_lines: {len(sel)} scans, {n_lines} lines ({line_miss} unmatched), "
-        f"{n_corners} corners ({corner_miss} unmatched), max endpoint err {err:.3e} m; "
-        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call), plain {plain_ms:.4f} ms a call",
+        f"{n_corners} corners ({corner_miss} unmatched), max endpoint err {err:.3e} m (edges {edge_err:.3e}; "
+        f"against the float64 plain version: kernel {err64:.3e}, float32 plain {err_plain64:.3e}); "
+        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call), plain {plain_ms:.4f} ms a call; {rsc}",
         flush=True,
     )
     return dict(
@@ -290,14 +308,108 @@ def check_extract(prm, frames, dev):
         route="cuda",
         source="liwslam_torch/csrc/extract_lines.cu",
         replaces="liwslam/ops/extract.py:377",
-        max_abs_err=err,
+        max_abs_err=max(err, edge_err),
+        max_err_vs_float64=err64,
         ms=ms,
         plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None,
         call_ms=call_ms,
+        **rsc,
     )
+
+
+def _lines_and_corners(prm, e1, e2, lv, gap):
+    """One scan's valid line rows [e1 e2] and corners, on the host."""
+    from liwslam_torch.frontend import scan
+
+    c, cv = scan._find_corners(e1, e2, lv, prm.laser_resolution, prm.max_corners, end_gap=gap)
+    lv, cv = lv.cpu().numpy(), cv.cpu().numpy()
+    return torch.cat([e1, e2], 1).cpu().numpy()[lv], c.cpu().numpy()[cv]
+
+
+def _polyline(corners, n):
+    """n points evenly along the polyline through ``corners`` (one unbroken
+    segment while the spacing is below the continuity gap), (n,3) float32
+    with a zero third column."""
+    corners = np.asarray(corners, np.float64)
+    seg = np.diff(corners, axis=0)
+    lens = np.linalg.norm(seg, axis=1)
+    s = np.arange(n) * (lens.sum() / n)
+    k = np.minimum(np.searchsorted(np.cumsum(lens), s, side="right"), len(lens) - 1)
+    t = (s - np.concatenate([[0.0], np.cumsum(lens)])[k]) / lens[k]
+    xy = corners[k] + t[:, None] * seg[k]
+    return np.concatenate([xy, np.zeros((n, 1))], 1).astype(np.float32)
+
+
+def check_extract_edges(prm, frames, dev):
+    """Kernel B2 at the edges of its thread mapping, against
+    extract_lines_plain, with check_extract's tolerances per case (counts
+    within 1 line / 2 corners, atol 1 cm, <= 3% of lines and 5% of corners
+    unmatched over the cases): N not a multiple of the points a thread owns
+    (a bench scan cut to 1151 and 1000 points), an all-invalid scan, one
+    unbroken segment (a room outline, 1.6 cm between points), more winners
+    than L (a bench scan with L = 4, and a 1152-point zigzag of 119 lines
+    at L = 64: the first L rows), and a batch of B = 3 bench scans in one
+    launch against three plain calls."""
+    from liwslam_torch.ops import extract as ext
+
+    kw = dict(
+        continuous_threshold=prm.line_continuous_threshold,
+        min_len=prm.line_min_len,
+        max_dis=prm.line_max_dis,
+        tolerance_angle_rad=prm.line_max_tolerance_angle_rad,
+        max_lines=prm.max_lines,
+    )
+    k0, k1, k2 = (len(frames) * q // 4 for q in (1, 2, 3))
+    scan = lambda k: (torch.as_tensor(frames[k].points, device=dev), torch.as_tensor(frames[k].point_valid, device=dev))
+    pts, val = scan(k0)
+    room = _polyline([(0, 0), (4, 0), (4, 3), (1, 3), (1, 5), (-2, 5), (-2, 1)], 1152)
+    zig = _polyline([(0.25 * j, 0.4 * (j % 2)) for j in range(120)], 1152)
+    cases = [
+        ("N=1151", pts[:1151].contiguous(), val[:1151].contiguous(), kw),
+        ("N=1000", pts[:1000].contiguous(), val[:1000].contiguous(), kw),
+        ("all invalid", pts, torch.zeros_like(val), kw),
+        ("one segment", torch.as_tensor(room, device=dev), torch.ones(1152, dtype=torch.bool, device=dev), kw),
+        ("L=4", pts, val, dict(kw, max_lines=4)),
+        ("zigzag", torch.as_tensor(zig, device=dev), torch.ones(1152, dtype=torch.bool, device=dev), kw),
+    ]
+    outs = [(name, ext.extract_lines(p, v, **k), ext.extract_lines_plain(p, v, **k), k) for name, p, v, k in cases]
+    bp, bv = zip(*(scan(k) for k in (k0, k1, k2)))
+    batch = ext.extract_lines_batched(torch.stack(bp), torch.stack(bv), **kw)
+    for b in range(3):
+        outs.append((f"batch {b}", tuple(t[b] for t in batch), ext.extract_lines_plain(bp[b], bv[b], **kw), kw))
+    n_lines = line_miss = n_corners = corner_miss = 0
+    err = 0.0
+    counts = {}
+    for name, ok_k, ok_p, k in outs:
+        (la, ca), (lb, cb) = _lines_and_corners(prm, *ok_k), _lines_and_corners(prm, *ok_p)
+        check(abs(len(la) - len(lb)) <= 1, f"B2 {name}: {len(la)} vs {len(lb)} lines")
+        check(abs(len(ca) - len(cb)) <= 2, f"B2 {name}: {len(ca)} vs {len(cb)} corners")
+        check(len(la) <= k["max_lines"], f"B2 {name}: {len(la)} lines > L")
+        _, miss, e = greedy_align(la, lb, 1e-2)
+        _, cmiss, _ = greedy_align(ca, cb, 1e-2)
+        n_lines += max(len(la), len(lb))
+        line_miss += miss
+        n_corners += max(len(ca), len(cb))
+        corner_miss += cmiss
+        err = max(err, e)
+        counts[name] = len(la)
+        # rows past the winners are zero in both
+        lv = ok_k[2].cpu().numpy()
+        check(not np.any(ok_k[0].cpu().numpy()[~lv]) and not np.any(ok_k[3].cpu().numpy()[~lv]), f"B2 {name}: rows past the winners not zeroed")
+    check(counts["all invalid"] == 0, f"B2 all invalid: {counts['all invalid']} lines")
+    check(counts["one segment"] >= 4, f"B2 one segment: {counts['one segment']} lines")
+    check(counts["L=4"] == 4 and counts["zigzag"] == prm.max_lines, f"B2 truncation: {counts}")
+    check(line_miss <= max(2, 0.03 * n_lines), f"B2 edges: {line_miss} of {n_lines} lines unmatched")
+    check(corner_miss <= max(2, 0.05 * n_corners), f"B2 edges: {corner_miss} of {n_corners} corners unmatched")
+    print(
+        f"B2 edges: lines {json.dumps(counts)}, {line_miss} of {n_lines} lines and {corner_miss} of "
+        f"{n_corners} corners unmatched, max endpoint err {err:.3e} m",
+        flush=True,
+    )
+    return err
 
 
 # ---------------------------------------------------------------- B1 ----
@@ -586,13 +698,13 @@ def run_main_path(prm, streams, dev):
     def on_chunk(info):
         stamps.append((time.perf_counter(), info["n"]))
 
-    ext.extract_lines.launches = 0
+    ext.extract_lines_batched.launches = 0
     ts.lm_solve_track_batched.launches = 0
     t0 = time.perf_counter()
     res = fe.run(streams, chunk_size=64, chunk_callback=on_chunk)
     wall = time.perf_counter() - t0
     launches = dict(
-        extract_lines=ext.extract_lines.launches,
+        extract_lines=ext.extract_lines_batched.launches,
         track_solve=ts.lm_solve_track_batched.launches,
     )
     n_init = int(len(res.t_us) - sum(n for _, n in stamps))
@@ -755,6 +867,7 @@ def check_lk(cprm, images, dev):
             check(np.abs(d - [3.6, -2.3]).max() < 0.15, f"B3 shift recovered as {d}")
     check(n_trk > 0 and n_agree >= 0.95 * n_trk, f"B3: ok flags agree on {n_agree} of {n_trk} tracks")
     check(err < 0.05, f"B3: position err {err} px where both keep a track")
+    edge_err = check_lk_edges(cprm, dev)
 
     img0, img1, pts, valid = cases[0]
     pyr0 = trk.build_pyramid(img0, cprm.cam_lk_levels)
@@ -763,6 +876,10 @@ def check_lk(cprm, images, dev):
     call = lambda: lk.lk_descent(pyr0, pyr1, pts, valid, gate, **kw)
     call_ms = time_ms(call)
     ms = kernel_ms(call, "lk_track_kernel")
+    # fixed part (staging, patch0 and gradients, verification) and one
+    # Gauss-Newton iteration: the same call with no iterations
+    fixed_ms = kernel_ms(lambda: lk.lk_descent(pyr0, pyr1, pts, valid, gate, **dict(kw, iters=0)), "lk_track_kernel")
+    per_iter_ms = (ms - fixed_ms) / (cprm.cam_lk_levels * cprm.cam_lk_iters)
     plain_ms = time_ms(lambda: trk.lk_descent(pyr0, pyr1, pts, valid, gate, **kw), n=20, warm=2)
     # bound, counted for the valid tracks of this call: each level reads a
     # (P+3)^2 window of img0 (patch, +-1 px gradients, bilinear) and a
@@ -775,10 +892,12 @@ def check_lk(cprm, images, dev):
     nbytes = 4 * n_valid * (L * ((P + 3) ** 2 + (P + 1) ** 2) + (P + 1) ** 2 * 2) + len(valid) * (8 + 1 + 8 + 1) + 4
     nops = n_valid * (L * (P * P * (5 * 10 + 6) + it * P * P * 15) + P * P * 22)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, nops / F32_FLOP_S * 1e3
+    rsc = kernel_resources("lk_track")
     print(
         f"B3 lk_track: {len(cases)} image pairs ({CAM_WH[0]}x{CAM_WH[1]}, T={F}), ok flags agree on "
-        f"{n_agree} of {n_trk} tracks, max position err {err:.3e} px over {n_both} tracks kept by both; "
-        f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call), plain {plain_ms:.4f} ms a call",
+        f"{n_agree} of {n_trk} tracks, max position err {err:.3e} px over {n_both} tracks kept by both "
+        f"(edges {edge_err:.3e}); kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call; fixed "
+        f"{fixed_ms:.4f} + {per_iter_ms:.4f} an iteration), plain {plain_ms:.4f} ms a call; {rsc}",
         flush=True,
     )
     return dict(
@@ -786,14 +905,93 @@ def check_lk(cprm, images, dev):
         route="cuda",
         source="liwslam_torch/csrc/lk_track.cu",
         replaces="liwslam/ops/lk.py:246",
-        max_abs_err=err,
+        max_abs_err=max(err, edge_err),
         ms=ms,
         plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None,
         call_ms=call_ms,
+        fixed_ms=fixed_ms,
+        per_iter_ms=per_iter_ms,
+        **rsc,
     )
+
+
+def _blurred(H, W, sigma=6.0, seed=2):
+    """White noise blurred by a Gaussian of ``sigma`` px (a texture whose
+    coarse pyramid levels still carry it: LK follows a 12 px shift)."""
+    rng = np.random.default_rng(seed)
+    fy, fx = np.fft.fftfreq(H)[:, None], np.fft.fftfreq(W)[None, :]
+    g = np.exp(-2 * (np.pi * sigma) ** 2 * (fx**2 + fy**2))
+    img = np.real(np.fft.ifft2(np.fft.fft2(rng.standard_normal((H, W))) * g))
+    return (img / img.std()).astype(np.float32)
+
+
+def check_lk_edges(cprm, dev):
+    """Kernel B3 at the edges of its thread mapping, against
+    tracker.lk_descent, with check_lk's tolerances (ok flags agree on >=
+    95% of the tracks, 0.05 px where both keep a track, a shift recovered
+    to 0.15 px): a smooth texture shifted by (12.4, -9.7) px, so that at
+    level 0 the patch leaves the staged window of img1 (lk.MARGIN = 8 px
+    around the start) and its taps read device memory; radius 15 (the
+    other instantiation, one warp a row); T = 47 and T = 1 (not a multiple
+    of the tracks a block); and a third of the tracks invalid (they keep
+    their positions and are not ok)."""
+    from liwslam_torch.camera import tracker as trk
+    from liwslam_torch.ops import lk
+
+    H, W = CAM_WH[1], CAM_WH[0]
+    L, it = cprm.cam_lk_levels, cprm.cam_lk_iters
+    rng = np.random.default_rng(3)
+    pts = lambda T, m=40: torch.as_tensor(
+        np.stack([rng.uniform(m, W - m, T), rng.uniform(m, H - m, T)], -1).astype(np.float32), device=dev
+    )
+    tex, blur = _textured(H, W), _blurred(H, W)
+    on = lambda T: torch.ones(T, dtype=torch.bool, device=dev)
+    some = torch.as_tensor(rng.uniform(size=48) > 1 / 3, device=dev)
+    cases = [
+        ("shift (12.4, -9.7)", blur, (12.4, -9.7), pts(48), on(48), cprm.cam_lk_radius),
+        ("radius 15", tex, (3.6, -2.3), pts(48), on(48), 15),
+        ("T=47", tex, (3.6, -2.3), pts(47), on(47), cprm.cam_lk_radius),
+        ("T=1", tex, (3.6, -2.3), pts(1), on(1), cprm.cam_lk_radius),
+        ("invalid tracks", tex, (3.6, -2.3), pts(48), some, cprm.cam_lk_radius),
+    ]
+    n_trk = n_agree = 0
+    err = 0.0
+    for name, img, (sx, sy), p0, valid, radius in cases:
+        img0 = torch.as_tensor(img, device=dev)
+        img1 = torch.as_tensor(_shifted(img, sx, sy), device=dev)
+        pyr0, pyr1 = trk.build_pyramid(img0, L), trk.build_pyramid(img1, L)
+        gate = (cprm.cam_lk_max_err * torch.clamp(torch.amax(img0), min=1.0)).reshape(1)
+        pk, okk = lk.lk_descent(pyr0, pyr1, p0, valid, gate, radius=radius, iters=it)
+        pp, okp = trk.lk_descent(pyr0, pyr1, p0, valid, gate, radius=radius, iters=it)
+        torch.cuda.synchronize()
+        pk, okk, pp, okp = pk.cpu().numpy(), okk.cpu().numpy(), pp.cpu().numpy(), okp.cpu().numpy()
+        v, p0 = valid.cpu().numpy(), p0.cpu().numpy()
+        check(np.all(np.isfinite(pk)), f"B3 {name}: non-finite positions")
+        check(np.array_equal(pk[~v], p0[~v]) and not okk[~v].any(), f"B3 {name}: an invalid track moved or is ok")
+        n_trk += int(v.sum())
+        n_agree += int((okk == okp)[v].sum())
+        both = okk & okp
+        if both.any():
+            err = max(err, float(np.abs(pk[both] - pp[both]).max()))
+        check(okk.sum() >= 0.8 * v.sum(), f"B3 {name}: {okk.sum()} of {v.sum()} tracks kept")
+        d = np.median(pk[okk] - p0[okk], axis=0)
+        check(np.abs(d - [sx, sy]).max() < 0.15, f"B3 {name}: shift recovered as {d}")
+        if name.startswith("shift"):
+            # the level-0 patch moved more than MARGIN px from where the
+            # window was staged: its taps came from device memory
+            moved = np.abs(np.floor(pk[okk]) - np.floor(p0[okk])).max(1)
+            check(np.all(moved > lk.MARGIN), f"B3 {name}: a kept track moved only {moved.min()} px")
+    check(n_agree >= 0.95 * n_trk, f"B3 edges: ok flags agree on {n_agree} of {n_trk} tracks")
+    check(err < 0.05, f"B3 edges: position err {err} px where both keep a track")
+    print(
+        f"B3 edges: {', '.join(c[0] for c in cases)}: ok flags agree on {n_agree} of {n_trk} tracks, "
+        f"max position err {err:.3e} px",
+        flush=True,
+    )
+    return err
 
 
 # ---------------------------------------------------------------- B4 ----
@@ -1001,6 +1199,98 @@ def check_cam_solve(prm, cprm, captured, dev):
     )
 
 
+# ---------------------------------------------- parent and variants ----
+
+
+def build_variant(name, src, tag, defines=()):
+    """Compile ``src`` (a B2 or B3 source with this tree's C interface) with
+    the port's nvcc flags and ``-D`` ``defines`` into liwslam_torch/_build/
+    as ``lib<name>.<tag>.so``; returns (its ``liwslam_<name>`` entry, spill
+    bytes in ptxas's report)."""
+    import ctypes
+    import os
+    import re
+
+    from liwslam_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib = os.path.join(_build.BUILD_DIR, f"lib{name}.{tag}.so")
+    cmd = [_build.find_nvcc(), *_build.FLAGS, *(f"-D{d}" for d in defines), "-o", lib, src]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"build of {src} ({tag}) failed:\n{out.stdout}{out.stderr}")
+    log = out.stdout + out.stderr
+    return getattr(ctypes.CDLL(lib), f"liwslam_{name}"), sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+
+
+def time_in_turns(prm, cprm, frames, images, dev, variants):
+    """Device ms (profiler, median of 60 launches) and ms a call (CUDA
+    events, median of 60) of B2 and B3 at check_extract's and check_lk's
+    timed cases, for each variant ``(label, name, source, defines)`` and
+    this tree's kernel, in turns: the variants, this tree twice, the
+    variants in reverse (with one variant: parent, change, change,
+    parent).  Each variant's lines or tracks are first held to this
+    tree's kernel's on the timed case."""
+    from liwslam_torch.camera import tracker as trk
+    from liwslam_torch.ops import extract as ext
+    from liwslam_torch.ops import lk
+
+    kw = dict(
+        continuous_threshold=prm.line_continuous_threshold,
+        min_len=prm.line_min_len,
+        max_dis=prm.line_max_dis,
+        tolerance_angle_rad=prm.line_max_tolerance_angle_rad,
+        max_lines=prm.max_lines,
+    )
+    pts = torch.as_tensor(frames[0].points, device=dev)
+    val = torch.as_tensor(frames[0].point_valid, device=dev)
+    start = len(images) // 3
+    img0 = torch.as_tensor(images[start], device=dev)
+    img1 = torch.as_tensor(images[start + 1], device=dev)
+    tp, tv = trk.select_features(img0, cprm.cam_feature_capacity, cprm.feature_min_dis, cell_px=10)
+    pyr0 = trk.build_pyramid(img0, cprm.cam_lk_levels)
+    pyr1 = trk.build_pyramid(img1, cprm.cam_lk_levels)
+    gate = (cprm.cam_lk_max_err * torch.clamp(torch.amax(img0), min=1.0)).reshape(1)
+    lkw = dict(radius=cprm.cam_lk_radius, iters=cprm.cam_lk_iters)
+    calls = {
+        "extract_lines": (ext, lambda: ext.extract_lines(pts, val, **kw), "extract_lines_kernel"),
+        "lk_track": (lk, lambda: lk.lk_descent(pyr0, pyr1, tp, tv, gate, **lkw), "lk_track_kernel"),
+    }
+    rows = []
+    for name, (mod, call, kname) in calls.items():
+        own = mod._lib()
+        mine = []
+        for label, vname, src, defines in variants:
+            if vname != name:
+                continue
+            fn, spill = build_variant(name, src, label.replace(" ", "_").replace("=", ""), defines)
+            fn.argtypes, fn.restype = own.argtypes, own.restype
+            mine.append((label, fn, spill))
+        lib = mod._lib
+        try:
+            ref = [t.cpu().numpy() for t in call()]
+            for label, fn, _ in mine:
+                mod._lib = lambda fn=fn: fn
+                out = [t.cpu().numpy() for t in call()]
+                if name == "extract_lines":
+                    la, lb = (np.concatenate([o[0], o[1]], 1)[o[2]] for o in (out, ref))
+                    _, miss, _ = greedy_align(la, lb, 1e-2)
+                    check(abs(len(la) - len(lb)) <= 1 and miss <= 2, f"{label}: {len(la)} lines vs {len(lb)}, {miss} unmatched")
+                else:
+                    both = out[1] & ref[1]
+                    check((out[1] == ref[1]).mean() >= 0.95, f"{label}: ok flags differ")
+                    check(not both.any() or np.abs(out[0][both] - ref[0][both]).max() < 0.05, f"{label}: positions differ")
+            order = [*mine, ("this tree", own, None), ("this tree", own, None), *reversed(mine)]
+            for label, fn, spill in order:
+                mod._lib = lambda fn=fn: fn
+                rows.append(dict(kernel=name, variant=label, ms=kernel_ms(call, kname), call_ms=time_ms(call), spill_bytes=spill))
+        finally:
+            mod._lib = lib
+    for r in rows:
+        print(f"in turns: {r['kernel']} {r['variant']}: {r['ms']:.4f} ms on the device, {r['call_ms']:.4f} ms a call", flush=True)
+    print(json.dumps({"in_turns": rows}), flush=True)
+    return rows
+
+
 # ------------------------------------------------------- camera path ----
 
 
@@ -1030,7 +1320,7 @@ def run_camera_path(cprm, streams, dev, laser_ate):
         stamps.append((time.perf_counter(), info["n"]))
 
     cam_solve.pack_inputs = capture
-    ext.extract_lines.launches = 0
+    ext.extract_lines_batched.launches = 0
     ts.lm_solve_track_batched.launches = 0
     lk.lk_descent.launches = 0
     cam_solve.lm_solve_cam_batched.launches = 0
@@ -1041,7 +1331,7 @@ def run_camera_path(cprm, streams, dev, laser_ate):
     finally:
         cam_solve.pack_inputs = pack
     launches = dict(
-        extract_lines=ext.extract_lines.launches,
+        extract_lines=ext.extract_lines_batched.launches,
         track_solve=ts.lm_solve_track_batched.launches,
         lk_track=lk.lk_descent.launches,
         cam_solve=cam_solve.lm_solve_cam_batched.launches,
@@ -1082,7 +1372,14 @@ def run_camera_path(cprm, streams, dev, laser_ate):
     return launches, (best, fe.scfg.frozen_dims)
 
 
-def main():
+def main(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of liwslam_torch on one GPU.")
+    ap.add_argument("--parent", help="a parent tree (unpacked under _archive/): time its B2 and B3 in turns with this tree's")
+    ap.add_argument("--b2-threads", default="", help="comma-separated block sizes: time B2 built with each in turns with this tree's")
+    ap.add_argument("--b3-warps", default="", help="comma-separated warps a track: time B3 built with each in turns with this tree's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
         return 1
@@ -1127,6 +1424,20 @@ def main():
     check_b1_along_path(prm, streams, dev, laser_ate)
     cam_launches, captured = run_camera_path(cprm, streams, dev, laser_ate)
     rows += [check_lk(cprm, streams.cam_images, dev), check_cam_solve(prm, cprm, captured, dev)]
+    variants = []
+    if args.parent:
+        import os
+
+        for name in ("extract_lines", "lk_track"):
+            variants.append(("parent", name, os.path.join(args.parent, "liwslam_torch", "csrc", name + ".cu"), ()))
+    for t in filter(None, args.b2_threads.split(",")):
+        src = "liwslam_torch/csrc/extract_lines.cu"
+        variants.append((f"threads={int(t)}", "extract_lines", src, (f"LIWSLAM_B2_THREADS={int(t)}",)))
+    for w in filter(None, args.b3_warps.split(",")):
+        src = "liwslam_torch/csrc/lk_track.cu"
+        variants.append((f"warps={int(w)}", "lk_track", src, (f"LIWSLAM_B3_WARPS_PER_TRACK={int(w)}",)))
+    if variants:
+        time_in_turns(prm, cprm, frames, streams.cam_images, dev, variants)
     for r in rows:
         # B1, B2: the laser-only main path; B3, B4: the camera path
         r["launches"] = launches.get(r["name"], cam_launches[r["name"]])
@@ -1142,4 +1453,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

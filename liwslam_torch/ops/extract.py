@@ -14,8 +14,10 @@ launch on the TPU) and of the line stages of
 5. compaction of the first ``max_lines`` winners in scan order.
 
 :func:`extract_lines` launches the hand-written CUDA kernel
-(``csrc/extract_lines.cu``, one thread block per scan) for CUDA tensors
-and runs :func:`extract_lines_plain` for CPU tensors.  Corner pairing
+(``csrc/extract_lines.cu``, one thread block per scan, each thread owning a
+run of consecutive points) for CUDA tensors and runs
+:func:`extract_lines_plain` for CPU tensors; :func:`extract_lines_batched`
+launches it on B scans at once.  Corner pairing
 (``frontend/scan._find_corners``) runs outside, on the compacted outputs.
 """
 
@@ -28,8 +30,8 @@ import torch
 _BIG = 1e9
 _EPS = 1e-8
 _STEP = 3  # corner-response half window (laser_manager.cpp:375-408)
-# points per scan the kernel takes: its per-point shared-memory arrays
-# (144 B a point) must fit the 227 KB a block can have on Hopper
+# points per scan the kernel takes (its N_MAX): its per-point shared-memory
+# arrays (120 B a point) must fit the 227 KB a block can have on Hopper
 N_MAX = 1600
 
 
@@ -225,7 +227,7 @@ def _lib():
     return fn
 
 
-def extract_lines(
+def extract_lines_batched(
     points,
     valid,
     *,
@@ -235,37 +237,26 @@ def extract_lines(
     tolerance_angle_rad: float,
     max_lines: int,
 ):
-    """Line extraction for one scan: points (N,3) f32, valid (N,) bool.
-
-    CPU tensors run :func:`extract_lines_plain`; CUDA tensors launch kernel
-    B2 on the current stream (or raise).  Returns (e1 (L,2), e2 (L,2),
-    line_valid (L,) bool, end_gap (L,)), rows past the winners zeroed."""
-    if points.device.type == "cpu":
-        return extract_lines_plain(
-            points,
-            valid,
-            continuous_threshold=continuous_threshold,
-            min_len=min_len,
-            max_dis=max_dis,
-            tolerance_angle_rad=tolerance_angle_rad,
-            max_lines=max_lines,
-        )
-    N = points.shape[0]
+    """Kernel B2 on B scans in one launch (one thread block a scan):
+    points (B,N,3) f32, valid (B,N) bool, CUDA tensors.  Returns (e1
+    (B,L,2), e2 (B,L,2), line_valid (B,L) bool, end_gap (B,L)), each scan's
+    rows past its winners zeroed."""
+    B, N = points.shape[0], points.shape[1]
     L = int(max_lines)
-    _check(points, "points", torch.float32, (N, 3))
-    _check(valid, "valid", torch.bool, (N,))
-    if not 1 <= N <= N_MAX or L < 1:
-        raise ValueError(f"extract_lines: need 1 <= N <= {N_MAX} points and max_lines >= 1")
+    _check(points, "points", torch.float32, (B, N, 3))
+    _check(valid, "valid", torch.bool, (B, N))
+    if not (1 <= N <= N_MAX and B >= 1 and L >= 1):
+        raise ValueError(f"extract_lines: need 1 <= N <= {N_MAX} points, B >= 1 scans and max_lines >= 1")
     fn = _lib()
     dev = points.device
-    e1 = torch.empty((L, 2), dtype=torch.float32, device=dev)
-    e2 = torch.empty((L, 2), dtype=torch.float32, device=dev)
-    lv = torch.empty((L,), dtype=torch.bool, device=dev)
-    end_gap = torch.empty((L,), dtype=torch.float32, device=dev)
+    e1 = torch.empty((B, L, 2), dtype=torch.float32, device=dev)
+    e2 = torch.empty((B, L, 2), dtype=torch.float32, device=dev)
+    lv = torch.empty((B, L), dtype=torch.bool, device=dev)
+    end_gap = torch.empty((B, L), dtype=torch.float32, device=dev)
     err = fn(
         points.data_ptr(),
         valid.data_ptr(),
-        1,
+        B,
         N,
         L,
         float(continuous_threshold),
@@ -280,8 +271,37 @@ def extract_lines(
     )
     if err != 0:
         raise RuntimeError(f"extract_lines kernel launch failed: cudaError_t {err}")
-    extract_lines.launches += 1
+    extract_lines_batched.launches += 1
     return e1, e2, lv, end_gap
 
 
-extract_lines.launches = 0
+extract_lines_batched.launches = 0
+
+
+def extract_lines(
+    points,
+    valid,
+    *,
+    continuous_threshold: float,
+    min_len: float,
+    max_dis: float,
+    tolerance_angle_rad: float,
+    max_lines: int,
+):
+    """Line extraction for one scan: points (N,3) f32, valid (N,) bool.
+
+    CPU tensors run :func:`extract_lines_plain`; CUDA tensors launch kernel
+    B2 on the current stream (:func:`extract_lines_batched` with B = 1, or
+    raise).  Returns (e1 (L,2), e2 (L,2), line_valid (L,) bool, end_gap
+    (L,)), rows past the winners zeroed."""
+    kw = dict(
+        continuous_threshold=continuous_threshold,
+        min_len=min_len,
+        max_dis=max_dis,
+        tolerance_angle_rad=tolerance_angle_rad,
+        max_lines=max_lines,
+    )
+    if points.device.type == "cpu":
+        return extract_lines_plain(points, valid, **kw)
+    e1, e2, lv, end_gap = extract_lines_batched(points[None], valid[None], **kw)
+    return e1[0], e2[0], lv[0], end_gap[0]

@@ -4,12 +4,16 @@ Port of ``liwslam/ops/lk.py`` (``lk_track_pallas``, one Pallas launch for
 the whole coarse-to-fine descent of every track).  The pyramids are built
 outside the kernel (``camera.tracker.build_pyramid``, as the reference
 package does); :func:`lk_track` launches the hand-written CUDA kernel
-(``csrc/lk_track.cu``, one thread block per track) for CUDA tensors and
-runs the plain version ``camera.tracker.lk_descent`` for CPU tensors.
+(``csrc/lk_track.cu``, four warps a track, every level's image windows
+staged in shared memory at launch) for CUDA tensors and runs the plain
+version ``camera.tracker.lk_descent`` for CPU tensors.
 
 The TPU layout of the reference kernel (zero aprons, aligned windows and
 rolls, tracks padded to multiples of 8, ``MAX_RADIUS`` = 10) is not carried
 over; the kernel's own limits are ``radius <= 15`` and ``levels <= 6``.
+``MARGIN`` is the kernel's margin, in each level's pixels, around the
+staged window of the second image: a level whose displacement leaves it
+reads device memory for its taps, with the same results.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from liwslam_torch.camera import tracker as trk
 
 MAX_LEVELS = 6
 MAX_RADIUS = 15
+MARGIN = 8
 
 
 class _Pyramids(ctypes.Structure):

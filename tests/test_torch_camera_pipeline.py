@@ -14,9 +14,30 @@ within 5e-3 m, tracked and ready landmark counts within 1.
 (b) Both packages' ``Frontend.run`` on the cut streams: the port reaches
 ATE < 0.1 m and stays within 0.05 m median drift of the reference's
 trajectory (the bounds tests/test_torch_pipeline.py holds the laser path
-to), and meets tests/test_camera_e2e.py's camera gates."""
+to), and meets tests/test_camera_e2e.py's camera gates.
+
+The reference runs in a child process with XLA's CPU code generation held
+to ``XLA_ISA`` (AVX2): how XLA vectorizes its float32 reductions follows
+the host's vector ISA, and at some frames of this noise-free track the
+laser match is a float32 near-tie (``match_lines`` picks among reference
+lines of one wall seen from several keyframes by arccos |cos|, which
+float32 cannot resolve below ~3e-4 rad), so the reference's own steps
+differed by up to ~1 cm from host to host.  Held to one ISA, every AVX2
+host compares the port with the same reference.
+
+    python3 -m tests.test_torch_camera_pipeline [--isa SSE4_2]
+
+prints, for each compared step, the port's float32 and float64 steps
+against the reference computed for that ISA (``native``: the host's own),
+and where the two precisions match a scan line differently, the largest
+|cos| to its candidate reference lines."""
 
 import dataclasses
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
 
 import numpy as np
 import jax
@@ -37,6 +58,8 @@ from tests.test_camera_e2e import H_PX, W_PX, cam_params
 SIM = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, camera_hz=10.0, camera_wh=(W_PX, H_PX), noise=False, seed=0)
 T_END_US = 6_100_000
 N_STEPS = 6
+XLA_ISA = "AVX2"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _cut(streams, t_end_us):
@@ -56,8 +79,7 @@ def _cut(streams, t_end_us):
     return dataclasses.replace(streams, **kw)
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference():
     """The reference front end on the cut streams: its packed frames, the
     index of the first tracked frame, the (state, cam state) before each
     tracked frame, its outputs, and its whole trajectory."""
@@ -75,6 +97,30 @@ def reference():
         outs.append(jax.tree_util.tree_map(np.asarray, out))
     p_ref = np.concatenate([np.asarray(st_init.p), np.stack([o[0].p for o in outs])])
     return prm, frames, k0, before, outs, p_ref
+
+
+_CHILD = """
+import pickle, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from tests import test_torch_camera_pipeline as t
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(t._reference(), f)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """:func:`_reference`, computed in a child process whose XLA CPU code
+    generation is held to ``XLA_ISA`` (the module docstring says why)."""
+    path = tmp_path_factory.mktemp("camera_reference") / "reference.pkl"
+    flags = f"{os.environ.get('XLA_FLAGS', '')} --xla_cpu_max_isa={XLA_ISA}".strip()
+    subprocess.run(
+        [sys.executable, "-c", _CHILD, str(path)],
+        cwd=ROOT, env=dict(os.environ, XLA_FLAGS=flags), check=True, timeout=1200,
+    )
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def test_camera_steps_match_reference(reference):
@@ -117,3 +163,74 @@ def test_camera_frontend_run_shadows_reference(reference):
     assert ate < 0.1, ate
     drift = np.linalg.norm(res.p - p_ref, axis=1)
     assert np.median(drift) < 0.05, drift.max()
+
+
+def _tree64(x):
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.dtype == torch.float32 else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_tree64(v) for v in x])
+    return x
+
+
+def _diagnose(isa):
+    """The module docstring's ``python3 -m`` diagnosis."""
+    import tempfile
+
+    from liwslam_torch.core import geometry as geo
+    from liwslam_torch.frontend import matching as tmm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "reference.pkl"
+        flags = os.environ.get("XLA_FLAGS", "")
+        if isa != "native":
+            flags = f"{flags} --xla_cpu_max_isa={isa}".strip()
+        subprocess.run([sys.executable, "-c", _CHILD, str(path)], cwd=ROOT, env=dict(os.environ, XLA_FLAGS=flags), check=True)
+        with open(path, "rb") as f:
+            prm, frames, k0, before, outs, _ = pickle.load(f)
+    fe = TFrontend(convert.params_from_reference(dataclasses.asdict(prm)), device="cpu")
+    cfg = (fe.consts, fe.dcfg, fe.scfg, fe.ccfg, fe.cdyn)
+    steps = [i for i in range(len(before)) if frames[k0 + i].cam_valid][:N_STEPS]
+    orig = tmm.match_lines
+    for j, i in enumerate(steps):
+        res = []
+        for wide in (False, True):
+            args = (
+                convert.track_state_from_numpy(before[i][0], "cpu"),
+                convert.cam_state_from_numpy(before[i][1], "cpu"),
+                convert.frame_input_cam_from_numpy(frames[k0 + i], "cpu"),
+            ) + cfg
+            calls = []
+            tmm.match_lines = lambda *a, **kw: calls.append((a, orig(*a, **kw))) or calls[-1][1]
+            try:
+                _, (out, _) = tcpl.tracking_step_cam(*(map(_tree64, args) if wide else args))
+            finally:
+                tmm.match_lines = orig
+            res.append((out, *calls[0]))
+        ref = outs[i][0]
+        (o32, a32, m32), (o64, _, m64) = res
+        print(
+            f"step {j}: laser |port f32 - reference| {np.abs(o32.p.numpy() - ref.p).max():.3e} m, "
+            f"|port f64 - reference| {np.abs(o64.p.double().numpy() - ref.p).max():.3e} m; n_match "
+            f"port f32 {int(o32.n_match)}, port f64 {int(o64.n_match)}, reference {int(ref.n_match)}",
+            flush=True,
+        )
+        rl, scan, cur_p, cur_q, Til = (_tree64(a) for a in a32)
+        T12 = geo.tf_inv(geo.make_tf(rl.pose_p, rl.pose_q) @ Til) @ (geo.make_tf(cur_p, cur_q) @ Til)
+        v2 = (geo.tf_apply(T12, scan.p2) - geo.tf_apply(T12, scan.p1))[:, :2]
+        v1 = (rl.p2 - rl.p1)[:, :2]
+        unit = lambda v: v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
+        top = torch.topk(torch.where(rl.valid[None, :], torch.abs(unit(v2) @ unit(v1).T), -1.0), 3, dim=1)
+        differ = (m32.valid != m64.valid) | ((m32.ref_p1.double() - m64.ref_p1).abs().amax(1) > 1e-6)
+        for line in torch.nonzero(differ).flatten().tolist():
+            vals = ", ".join(f"{v:.10f}" for v in top.values[line].tolist())
+            print(f"    scan line {line}: largest |cos| {vals} (reference lines {top.indices[line].tolist()})")
+
+
+if __name__ == "__main__":
+    import argparse
+
+    jax.config.update("jax_platforms", "cpu")
+    ap = argparse.ArgumentParser(description="Diagnose the camera-step parity test's float32 ties.")
+    ap.add_argument("--isa", default=XLA_ISA, help="XLA CPU ISA of the reference, or 'native'")
+    _diagnose(ap.parse_args().isa)

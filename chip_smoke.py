@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port (``liwslam_torch``) on one GPU.
 
-    python3 chip_smoke.py [--parent _archive/<tree>] [--b2-threads 32,256] [--b3-warps 1,2]
+    python3 chip_smoke.py [--parent _archive/<tree>]
 
 Phases, one line each (any failed check raises and the exit code is not 0):
 
@@ -35,11 +35,9 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    captured camera sub-step, a synthetic problem, a batch of three and the
    (F, Wc) edges of its thread mapping and shared memory, timed like B1,
    and the single-view case (:func:`single_view_spread`);
-7. with ``--parent`` (a parent tree unpacked under ``_archive/``),
-   ``--b2-threads`` or ``--b3-warps``, B2 and B3 as that tree's sources,
-   B2 at other block sizes or B3 at other warps a track, built by hand and
-   timed in turns with this tree's (:func:`time_in_turns`: parent, change,
-   change, parent);
+7. with ``--parent`` (a parent tree unpacked under ``_archive/``), B2
+   and B3 built by hand from that tree's sources and timed in turns with
+   this tree's (:func:`time_in_turns`: parent, change, change, parent);
 8. one JSON object ``{"kernels": [...]}`` with each kernel's launches on its
    main path, error against its plain version, times and bound, registers
    and local memory a thread, and ptxas's spill bytes
@@ -170,26 +168,32 @@ def kernel_ms(fn, kernel, n=60):
     """Median device duration of the kernel named ``kernel`` over ``n``
     calls of ``fn``, from the profiler's CUDA activity records.  For a
     kernel shorter than the host's enqueue of one call, the CUDA events of
-    :func:`time_ms` also measure the host's gap before the launch."""
+    :func:`time_ms` also measure the host's gap before the launch.
+
+    The profiler may drop activity records of a run (seen for B3's 16 us
+    launches, and once three quarters of B4's in a run of 20): it profiles
+    up to 12 runs of ``n`` calls until ``n`` records are pooled, and prints
+    how many each run kept whenever one kept fewer than ``n``."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    durs, runs = [], 12
-    # the profiler may drop activity records of a run (seen for B3's 16 us
-    # launches, and once three quarters of B4's in a sweep of 20): up to
-    # `runs` profiled runs, until n are recorded
+    durs, kept, runs = [], [], 12
     for _ in range(runs):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        durs += [
+        run = [
             (e.time_range.end - e.time_range.start) / 1e3
             for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
         ]
+        durs += run
+        kept.append(len(run))
         if len(durs) >= n:
             break
+    if min(kept) < n:
+        print(f"kernel_ms {kernel}: {len(kept)} profiled runs of {n} calls kept {kept} records", flush=True)
     check(len(durs) >= n, f"profiler saw {len(durs)} launches of {kernel} in {runs} profiled runs of {n}")
     return statistics.median(durs[:n])
 
@@ -1199,13 +1203,13 @@ def check_cam_solve(prm, cprm, captured, dev):
     )
 
 
-# ---------------------------------------------- parent and variants ----
+# -------------------------------------------------------- the parent ----
 
 
-def build_variant(name, src, tag, defines=()):
-    """Compile ``src`` (a B2 or B3 source with this tree's C interface) with
-    the port's nvcc flags and ``-D`` ``defines`` into liwslam_torch/_build/
-    as ``lib<name>.<tag>.so``; returns (its ``liwslam_<name>`` entry, spill
+def build_parent(name, src):
+    """Compile ``src`` (a parent's B2 or B3 source with this tree's C
+    interface) with the port's nvcc flags into liwslam_torch/_build/ as
+    ``lib<name>.parent.so``; returns (its ``liwslam_<name>`` entry, spill
     bytes in ptxas's report)."""
     import ctypes
     import os
@@ -1214,22 +1218,22 @@ def build_variant(name, src, tag, defines=()):
     from liwslam_torch.ops import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    lib = os.path.join(_build.BUILD_DIR, f"lib{name}.{tag}.so")
-    cmd = [_build.find_nvcc(), *_build.FLAGS, *(f"-D{d}" for d in defines), "-o", lib, src]
+    lib = os.path.join(_build.BUILD_DIR, f"lib{name}.parent.so")
+    cmd = [_build.find_nvcc(), *_build.FLAGS, "-o", lib, src]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0, f"build of {src} ({tag}) failed:\n{out.stdout}{out.stderr}")
+    check(out.returncode == 0, f"build of {src} failed:\n{out.stdout}{out.stderr}")
     log = out.stdout + out.stderr
     return getattr(ctypes.CDLL(lib), f"liwslam_{name}"), sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
 
 
-def time_in_turns(prm, cprm, frames, images, dev, variants):
+def time_in_turns(prm, cprm, frames, images, dev, parent):
     """Device ms (profiler, median of 60 launches) and ms a call (CUDA
     events, median of 60) of B2 and B3 at check_extract's and check_lk's
-    timed cases, for each variant ``(label, name, source, defines)`` and
-    this tree's kernel, in turns: the variants, this tree twice, the
-    variants in reverse (with one variant: parent, change, change,
-    parent).  Each variant's lines or tracks are first held to this
-    tree's kernel's on the timed case."""
+    timed cases, for the kernels built from the tree ``parent`` and this
+    tree's, in turns: parent, change, change, parent.  The parent's lines
+    or tracks are first held to this tree's kernel's on the timed case."""
+    import os
+
     from liwslam_torch.camera import tracker as trk
     from liwslam_torch.ops import extract as ext
     from liwslam_torch.ops import lk
@@ -1258,31 +1262,25 @@ def time_in_turns(prm, cprm, frames, images, dev, variants):
     rows = []
     for name, (mod, call, kname) in calls.items():
         own = mod._lib()
-        mine = []
-        for label, vname, src, defines in variants:
-            if vname != name:
-                continue
-            fn, spill = build_variant(name, src, label.replace(" ", "_").replace("=", ""), defines)
-            fn.argtypes, fn.restype = own.argtypes, own.restype
-            mine.append((label, fn, spill))
+        fn, spill = build_parent(name, os.path.join(parent, "liwslam_torch", "csrc", name + ".cu"))
+        fn.argtypes, fn.restype = own.argtypes, own.restype
         lib = mod._lib
         try:
             ref = [t.cpu().numpy() for t in call()]
-            for label, fn, _ in mine:
-                mod._lib = lambda fn=fn: fn
-                out = [t.cpu().numpy() for t in call()]
-                if name == "extract_lines":
-                    la, lb = (np.concatenate([o[0], o[1]], 1)[o[2]] for o in (out, ref))
-                    _, miss, _ = greedy_align(la, lb, 1e-2)
-                    check(abs(len(la) - len(lb)) <= 1 and miss <= 2, f"{label}: {len(la)} lines vs {len(lb)}, {miss} unmatched")
-                else:
-                    both = out[1] & ref[1]
-                    check((out[1] == ref[1]).mean() >= 0.95, f"{label}: ok flags differ")
-                    check(not both.any() or np.abs(out[0][both] - ref[0][both]).max() < 0.05, f"{label}: positions differ")
-            order = [*mine, ("this tree", own, None), ("this tree", own, None), *reversed(mine)]
-            for label, fn, spill in order:
-                mod._lib = lambda fn=fn: fn
-                rows.append(dict(kernel=name, variant=label, ms=kernel_ms(call, kname), call_ms=time_ms(call), spill_bytes=spill))
+            mod._lib = lambda: fn
+            out = [t.cpu().numpy() for t in call()]
+            if name == "extract_lines":
+                la, lb = (np.concatenate([o[0], o[1]], 1)[o[2]] for o in (out, ref))
+                _, miss, _ = greedy_align(la, lb, 1e-2)
+                check(abs(len(la) - len(lb)) <= 1 and miss <= 2, f"parent: {len(la)} lines vs {len(lb)}, {miss} unmatched")
+            else:
+                both = out[1] & ref[1]
+                check((out[1] == ref[1]).mean() >= 0.95, "parent: ok flags differ")
+                check(not both.any() or np.abs(out[0][both] - ref[0][both]).max() < 0.05, "parent: positions differ")
+            order = [("parent", fn, spill), ("this tree", own, None), ("this tree", own, None), ("parent", fn, spill)]
+            for label, f, sb in order:
+                mod._lib = lambda f=f: f
+                rows.append(dict(kernel=name, variant=label, ms=kernel_ms(call, kname), call_ms=time_ms(call), spill_bytes=sb))
         finally:
             mod._lib = lib
     for r in rows:
@@ -1377,8 +1375,6 @@ def main(argv):
 
     ap = argparse.ArgumentParser(description="Chip smoke test of liwslam_torch on one GPU.")
     ap.add_argument("--parent", help="a parent tree (unpacked under _archive/): time its B2 and B3 in turns with this tree's")
-    ap.add_argument("--b2-threads", default="", help="comma-separated block sizes: time B2 built with each in turns with this tree's")
-    ap.add_argument("--b3-warps", default="", help="comma-separated warps a track: time B3 built with each in turns with this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -1424,20 +1420,8 @@ def main(argv):
     check_b1_along_path(prm, streams, dev, laser_ate)
     cam_launches, captured = run_camera_path(cprm, streams, dev, laser_ate)
     rows += [check_lk(cprm, streams.cam_images, dev), check_cam_solve(prm, cprm, captured, dev)]
-    variants = []
     if args.parent:
-        import os
-
-        for name in ("extract_lines", "lk_track"):
-            variants.append(("parent", name, os.path.join(args.parent, "liwslam_torch", "csrc", name + ".cu"), ()))
-    for t in filter(None, args.b2_threads.split(",")):
-        src = "liwslam_torch/csrc/extract_lines.cu"
-        variants.append((f"threads={int(t)}", "extract_lines", src, (f"LIWSLAM_B2_THREADS={int(t)}",)))
-    for w in filter(None, args.b3_warps.split(",")):
-        src = "liwslam_torch/csrc/lk_track.cu"
-        variants.append((f"warps={int(w)}", "lk_track", src, (f"LIWSLAM_B3_WARPS_PER_TRACK={int(w)}",)))
-    if variants:
-        time_in_turns(prm, cprm, frames, streams.cam_images, dev, variants)
+        time_in_turns(prm, cprm, frames, streams.cam_images, dev, args.parent)
     for r in rows:
         # B1, B2: the laser-only main path; B3, B4: the camera path
         r["launches"] = launches.get(r["name"], cam_launches[r["name"]])

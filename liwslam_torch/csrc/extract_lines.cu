@@ -51,22 +51,18 @@
 //     any order);
 //   9 winners' rank (+) and count over the slots.
 // Nine barriers a scan; winner r is written to row r.  The sums differ from
-// the plain version's only in order.  B scans run as B blocks.  Measured
-// on the card (chip_smoke.py --b2-threads): 384 threads beat 256 and 512,
-// and one warp a scan (36 points a lane, its registers spilled) took nine
-// times as long.
+// the plain version's only in order.  B scans run as B blocks.  Timed on
+// an H100 against other block sizes: 384 threads beat 256 and 512, and one
+// warp a scan (36 points a lane, its registers spilled) took nine times as
+// long.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#ifndef LIWSLAM_B2_THREADS
-#define LIWSLAM_B2_THREADS 384
-#endif
-
 namespace {
 
-constexpr int THREADS = LIWSLAM_B2_THREADS;
+constexpr int THREADS = 384;
 constexpr int NWARP = THREADS / 32;
 constexpr int N_MAX = 1600;                            // points a scan, at most
 constexpr int MAXP = (N_MAX + THREADS - 1) / THREADS;  // points a thread, at most
@@ -80,6 +76,7 @@ constexpr float BIG = 1e9f;
 constexpr int POINT_BYTES = 6 * 8 + 14 * 4 + 4 * 4;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have (227 KB)
 static_assert(THREADS % 32 == 0 && NWARP <= 32, "THREADS: whole warps, at most 32");
+static_assert(MAXP <= 32, "a thread's winners are bits of one 32-bit word");
 static_assert(POINT_BYTES * N_MAX <= SMEM_MAX, "N_MAX points must fit a block's shared memory");
 
 constexpr unsigned FULL = 0xffffffffu;

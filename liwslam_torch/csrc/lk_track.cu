@@ -22,17 +22,17 @@
 // step.
 //
 // What the design does about it:
-// - WPT = 4 warps a track, two tracks a block (T = 48: 24 blocks): a
-//   track's sum is five xor shuffles in each of its warps (every lane ends
-//   with the same sum, since IEEE addition commutes), then the four warps'
-//   totals through shared memory behind a named barrier over the track's
-//   128 threads, added in warp order, and every lane solves the same 2x2
-//   from it.  No barrier spans a block, except where two tracks' shared
-//   memory does not fit one (6 levels at r >= 12, 5 at r >= 14: one track
-//   a block).  With one warp a track (WPT = 1: shuffles only) each lane
-//   carried 8 of the patch's 15 rows, and its serial row work left the
-//   kernel slower than the parent's block a track (chip_smoke.py's timing
-//   in turns); with four, a lane carries 2;
+// - four warps a track, two tracks a block (T = 48: 24 blocks): a track's
+//   sum is five xor shuffles in each of its warps (every lane ends with the
+//   same sum, since IEEE addition commutes), then the four warps' totals
+//   through shared memory behind a named barrier over the track's 128
+//   threads, added in warp order, and every lane solves the same 2x2 from
+//   it.  No barrier spans a block, except where two tracks' shared memory
+//   does not fit one (6 levels at r >= 12, 5 at r >= 14: one track a
+//   block).  Timed on an H100 against one and two warps a track: with one
+//   (shuffles only) each lane carried 8 of the patch's 15 rows, and its
+//   serial row work left the kernel slower than a block a track; with
+//   four, a lane carries 2;
 // - every load of device memory is issued at launch, as 16-byte cp.async
 //   copies (4-byte ones where a level's width is not a multiple of 4), in
 //   one round trip: for every level, img0's window around the track (patch,
@@ -62,21 +62,19 @@
 #include <math.h>
 #include <stdint.h>
 
-#ifndef LIWSLAM_B3_WARPS_PER_TRACK
-#define LIWSLAM_B3_WARPS_PER_TRACK 4
-#endif
-
 namespace {
 
 constexpr int MAX_LEVELS = 6;
 constexpr int MAX_RADIUS = 15;
-constexpr int WPT = LIWSLAM_B3_WARPS_PER_TRACK;  // warps a track
+constexpr int WPT = 4;           // warps a track
 constexpr int BLOCK_WARPS = 8;   // warps a block, at most: BLOCK_WARPS / WPT tracks
 constexpr int SMALL_RADIUS = 7;  // radii up to this run lk_track_kernel<ROWS_SMALL>
-// patch rows a lane: half warps take a row at 2r+1 <= 16 (2 WPT rows a
-// step), whole warps at 2r+1 <= 31 (WPT rows a step)
-constexpr int ROWS_SMALL = (2 * SMALL_RADIUS + 1 + 2 * WPT - 1) / (2 * WPT);
-constexpr int ROWS_LARGE = (2 * MAX_RADIUS + 1 + WPT - 1) / WPT;
+// patch rows a lane: a track's 8 half warps take a row each at 2r+1 <= 16,
+// its 4 warps a row each at 2r+1 <= 31
+constexpr int ROWS_SMALL = 2;
+constexpr int ROWS_LARGE = 8;
+static_assert(ROWS_SMALL * 2 * WPT >= 2 * SMALL_RADIUS + 1 && 2 * SMALL_RADIUS + 1 <= 16, "ROWS_SMALL");
+static_assert(ROWS_LARGE * WPT >= 2 * MAX_RADIUS + 1, "ROWS_LARGE");
 constexpr int MARGIN = 8;        // img1 window margin, px each side
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have (227 KB)
 constexpr unsigned FULL = 0xffffffffu;
@@ -100,7 +98,8 @@ namespace {
 // rows of C1 columns, stride S1), patch0, gx and gy (P x P each), the
 // track's lanes' partial sums of gx gx, gx gy, gy gy (3 x 32 WPT) and their
 // warps' totals (3 x WPT).  A window's columns start at a multiple of 4.
-constexpr int XB = (4 * WPT + 3) / 4 * 4;
+constexpr int XB = 16;  // two halves of (a, b) for each warp
+static_assert(XB >= 4 * WPT && (3 * WPT) % 4 == 0, "XB and the warps' totals: whole 16-byte regions");
 struct Geo {
   int r, P, Q, C0, S0, WS, C1, S1, w1, pd, part, sums, per_level;
   __host__ __device__ explicit Geo(int radius) : r(radius) {
@@ -117,7 +116,7 @@ struct Geo {
     pd = w1 + WS * S1;
     part = pd + (3 * P * P + 3) / 4 * 4;
     sums = part + 3 * 32 * WPT;
-    per_level = sums + (3 * WPT + 3) / 4 * 4;
+    per_level = sums + 3 * WPT;
   }
 };
 
@@ -251,8 +250,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // 32 WPT threads; a block holds BLOCK_WARPS / WPT tracks, each with its
 // own barrier id)
 __device__ __forceinline__ void track_sync(int bar) {
-  if constexpr (WPT > 1) asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(32 * WPT) : "memory");
-  else __syncwarp();
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(32 * WPT) : "memory");
 }
 
 // (a, b) summed over the track's lanes, the same in every lane: each warp's
@@ -262,21 +260,19 @@ __device__ __forceinline__ void track_sync(int bar) {
 __device__ __forceinline__ void track_sum(float& a, float& b, float* xb, int& half, int wt, int bar) {
   a = warp_sum(a);
   b = warp_sum(b);
-  if constexpr (WPT > 1) {
-    float* q = xb + half * 2 * WPT;
-    half ^= 1;
-    if ((threadIdx.x & 31) == 0) {
-      q[wt] = a;
-      q[WPT + wt] = b;
-    }
-    track_sync(bar);
-    a = q[0];
-    b = q[WPT];
+  float* q = xb + half * 2 * WPT;
+  half ^= 1;
+  if ((threadIdx.x & 31) == 0) {
+    q[wt] = a;
+    q[WPT + wt] = b;
+  }
+  track_sync(bar);
+  a = q[0];
+  b = q[WPT];
 #pragma unroll
-    for (int w = 1; w < WPT; ++w) {
-      a = __fadd_rn(a, q[w]);
-      b = __fadd_rn(b, q[WPT + w]);
-    }
+  for (int w = 1; w < WPT; ++w) {
+    a = __fadd_rn(a, q[w]);
+    b = __fadd_rn(b, q[WPT + w]);
   }
 }
 
@@ -392,7 +388,7 @@ __global__ void __launch_bounds__(32 * BLOCK_WARPS) lk_track_kernel(
   track_sync(bar);
 
   // --- 3. coarse to fine: in an iteration, no branch but the window test
-  // and one barrier over the track's warps (none with WPT = 1) -----------
+  // and one barrier over the track's warps ---------------------------------
   float dx = 0.f, dy = 0.f;  // displacement in level-0 pixels
   for (int lvl = levels - 1; lvl >= 0; --lvl) {
     const float scale = (float)(1 << lvl);

@@ -11,33 +11,24 @@ are carried across with ``liwslam_torch.convert`` and one port
 ``tracking_step_cam`` runs on them: camera-frame and laser-frame positions
 within 5e-3 m, tracked and ready landmark counts within 1.
 
+At each of these steps the laser match has float32 ties: ``match_lines``
+picks a scan line's reference line by arccos |cos|, and on this noise-free
+track one wall is in the submap several times (seen from several
+keyframes), its copies within 1e-8 in |cos| of each other, which float32
+cannot resolve (~3e-4 rad near 0).  Which copy wins then follows rounding
+(XLA's CPU code for the reference, whose vectorization follows the host's
+ISA), and the chosen copy moves the step by up to ~1 cm.  So before each
+step the submap lines that tie with a scan line's best candidate (angles
+within ``TIE_RAD`` of it, in float64) are left out of the state, both
+packages step from that state, and the step no longer depends on rounding.
+
 (b) Both packages' ``Frontend.run`` on the cut streams: the port reaches
 ATE < 0.1 m and stays within 0.05 m median drift of the reference's
 trajectory (the bounds tests/test_torch_pipeline.py holds the laser path
-to), and meets tests/test_camera_e2e.py's camera gates.
-
-The reference runs in a child process with XLA's CPU code generation held
-to ``XLA_ISA`` (AVX2): how XLA vectorizes its float32 reductions follows
-the host's vector ISA, and at some frames of this noise-free track the
-laser match is a float32 near-tie (``match_lines`` picks among reference
-lines of one wall seen from several keyframes by arccos |cos|, which
-float32 cannot resolve below ~3e-4 rad), so the reference's own steps
-differed by up to ~1 cm from host to host.  Held to one ISA, every AVX2
-host compares the port with the same reference.
-
-    python3 -m tests.test_torch_camera_pipeline [--isa SSE4_2]
-
-prints, for each compared step, the port's float32 and float64 steps
-against the reference computed for that ISA (``native``: the host's own),
-and where the two precisions match a scan line differently, the largest
-|cos| to its candidate reference lines."""
+to), and meets tests/test_camera_e2e.py's camera gates."""
 
 import dataclasses
-import os
-import pathlib
-import pickle
-import subprocess
-import sys
+import math
 
 import numpy as np
 import jax
@@ -49,8 +40,10 @@ from liwslam.frontend import camera_pipeline as jcpl
 from liwslam.frontend.driver import Frontend as JFrontend
 from liwslam.sim import world as jsim
 from liwslam_torch import convert
+from liwslam_torch.core import geometry as geo
 from liwslam_torch.eval import metrics
 from liwslam_torch.frontend import camera_pipeline as tcpl
+from liwslam_torch.frontend import matching as tmm
 from liwslam_torch.frontend.driver import Frontend as TFrontend
 from liwslam_torch.sim import world as tsim
 from tests.test_camera_e2e import H_PX, W_PX, cam_params
@@ -58,8 +51,7 @@ from tests.test_camera_e2e import H_PX, W_PX, cam_params
 SIM = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, camera_hz=10.0, camera_wh=(W_PX, H_PX), noise=False, seed=0)
 T_END_US = 6_100_000
 N_STEPS = 6
-XLA_ISA = "AVX2"
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+TIE_RAD = 1e-3
 
 
 def _cut(streams, t_end_us):
@@ -79,10 +71,11 @@ def _cut(streams, t_end_us):
     return dataclasses.replace(streams, **kw)
 
 
-def _reference():
+@pytest.fixture(scope="module")
+def reference():
     """The reference front end on the cut streams: its packed frames, the
     index of the first tracked frame, the (state, cam state) before each
-    tracked frame, its outputs, and its whole trajectory."""
+    tracked frame, its outputs, its whole trajectory, and its jitted step."""
     prm = cam_params()
     streams = _cut(jsim.simulate(jsim.default_track("L"), jsim.square_room(obstacles=True), prm, **SIM), T_END_US)
     fe = JFrontend(prm)
@@ -96,56 +89,102 @@ def _reference():
         carry, out = step(*carry, jax.tree_util.tree_map(jnp.asarray, frames[k]))
         outs.append(jax.tree_util.tree_map(np.asarray, out))
     p_ref = np.concatenate([np.asarray(st_init.p), np.stack([o[0].p for o in outs])])
-    return prm, frames, k0, before, outs, p_ref
+    return prm, frames, k0, before, outs, p_ref, step
 
 
-_CHILD = """
-import pickle, sys
-import jax
-jax.config.update("jax_platforms", "cpu")
-from tests import test_torch_camera_pipeline as t
-with open(sys.argv[1], "wb") as f:
-    pickle.dump(t._reference(), f)
-"""
+def _port_step(fe, jstate, jcam, frame, stop_at_match=False):
+    """One port ``tracking_step_cam`` from the reference's state; with
+    ``stop_at_match``, only up to its ``match_lines`` call, whose
+    arguments it returns."""
+    state = convert.track_state_from_numpy(jstate, "cpu")
+    cam = convert.cam_state_from_numpy(jcam, "cpu")
+    assert cam.fw.ids.dtype == torch.int32 and cam.live.dtype == torch.bool
+    inp = convert.frame_input_cam_from_numpy(frame, "cpu")
+    if not stop_at_match:
+        _, (out, cam_out) = tcpl.tracking_step_cam(state, cam, inp, fe.consts, fe.dcfg, fe.scfg, fe.ccfg, fe.cdyn)
+        return out, cam_out
+
+    class Matched(Exception):
+        pass
+
+    def stop(*args, **kw):
+        raise Matched(args)
+
+    match, tmm.match_lines = tmm.match_lines, stop
+    try:
+        tcpl.tracking_step_cam(state, cam, inp, fe.consts, fe.dcfg, fe.scfg, fe.ccfg, fe.cdyn)
+    except Matched as m:
+        return m.args[0]
+    finally:
+        tmm.match_lines = match
+    raise AssertionError("tracking_step_cam did not call match_lines")
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """:func:`_reference`, computed in a child process whose XLA CPU code
-    generation is held to ``XLA_ISA`` (the module docstring says why)."""
-    path = tmp_path_factory.mktemp("camera_reference") / "reference.pkl"
-    flags = f"{os.environ.get('XLA_FLAGS', '')} --xla_cpu_max_isa={XLA_ISA}".strip()
-    subprocess.run(
-        [sys.executable, "-c", _CHILD, str(path)],
-        cwd=ROOT, env=dict(os.environ, XLA_FLAGS=flags), check=True, timeout=1200,
-    )
-    with open(path, "rb") as f:
-        return pickle.load(f)
+def _f64(x):
+    if isinstance(x, tuple):
+        return type(x)(*map(_f64, x))
+    return x.double() if x.is_floating_point() else x
+
+
+def _tied_lines(match_args, resolution):
+    """Indices of the submap lines to leave out so that no matched scan
+    line has a second candidate within ``TIE_RAD`` of its best (in
+    float64, with ``match_lines``'s candidate gate and angle): each round
+    leaves out such second candidates, until none is left."""
+    ref, scan, p, q, Til = map(_f64, match_args)
+    T12 = geo.tf_inv(geo.make_tf(ref.pose_p, ref.pose_q) @ Til) @ (geo.make_tf(p, q) @ Til)
+    q1, q2 = geo.tf_apply(T12, scan.p1), geo.tf_apply(T12, scan.p2)
+    mid = 0.5 * (q1 + q2)[:, None, :2]
+    a, ab = ref.p1[None, :, :2], (ref.p2 - ref.p1)[None, :, :2]
+    t = torch.clamp(((mid - a) * ab).sum(-1) / torch.clamp((ab * ab).sum(-1), min=1e-8), 0.0, 1.0)
+    d2 = ((mid - a - t[..., None] * ab) ** 2).sum(-1)
+    cand = (d2 <= (1.5 * resolution * math.sqrt(2.0)) ** 2) & scan.line_valid[:, None]
+    unit = lambda v: v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-8)
+    cos = torch.abs(unit((q2 - q1)[:, :2]) @ unit((ref.p2 - ref.p1)[:, :2]).T)
+    ang = torch.arccos(torch.clamp(cos, -1.0, 1.0))
+    valid, left_out = ref.valid.clone(), []
+    while True:
+        a = torch.where(cand & valid[None, :], ang, math.inf)
+        best_ang, best = torch.min(a, 1)
+        tie = (a <= best_ang[:, None] + TIE_RAD) & (best_ang < math.radians(10.0))[:, None]
+        tie[torch.arange(len(best)), best] = False
+        cols = torch.nonzero(tie.any(0)).flatten().tolist()
+        if not cols:
+            return left_out
+        left_out += cols
+        valid[cols] = False
 
 
 def test_camera_steps_match_reference(reference):
-    prm, frames, k0, before, outs, _ = reference
+    prm, frames, k0, before, outs, _, step = reference
     fe = TFrontend(convert.params_from_reference(dataclasses.asdict(prm)), device="cpu")
     steps = [i for i in range(len(before)) if frames[k0 + i].cam_valid][:N_STEPS]
     assert len(steps) == N_STEPS
     for i in steps:
         jstate, jcam = before[i]
-        state = convert.track_state_from_numpy(jstate, "cpu")
-        cam = convert.cam_state_from_numpy(jcam, "cpu")
-        assert cam.fw.ids.dtype == torch.int32 and cam.live.dtype == torch.bool
-        inp = convert.frame_input_cam_from_numpy(frames[k0 + i], "cpu")
-        _, (out, cam_out) = tcpl.tracking_step_cam(state, cam, inp, fe.consts, fe.dcfg, fe.scfg, fe.ccfg, fe.cdyn)
+        frame = frames[k0 + i]
         ref, ref_cam = outs[i]
+        left_out = _tied_lines(_port_step(fe, jstate, jcam, frame, stop_at_match=True), fe.dcfg.resolution)
+        if left_out:
+            # both packages step without the tied submap lines
+            pair = jstate.pair
+            valid = pair.ref.valid.copy()
+            valid[left_out] = False
+            jstate = jstate._replace(pair=pair._replace(ref=pair.ref._replace(valid=valid)))
+            _, (ref, ref_cam) = step(*jax.tree_util.tree_map(jnp.asarray, (jstate, jcam, frame)))
+            ref, ref_cam = jax.tree_util.tree_map(np.asarray, (ref, ref_cam))
+        out, cam_out = _port_step(fe, jstate, jcam, frame)
+        msg = f"step {i} ({len(left_out)} tied submap lines left out)"
         assert cam_out.valid and bool(ref_cam.valid)
-        np.testing.assert_allclose(cam_out.p.numpy(), ref_cam.p, atol=5e-3, err_msg=f"camera frame {i}")
-        np.testing.assert_allclose(out.p.numpy(), ref.p, atol=5e-3, err_msg=f"laser frame {i}")
-        assert abs(int(cam_out.n_tracked) - int(ref_cam.n_tracked)) <= 1, i
-        assert abs(int(cam_out.n_ready) - int(ref_cam.n_ready)) <= 1, i
+        np.testing.assert_allclose(cam_out.p.numpy(), ref_cam.p, atol=5e-3, err_msg=f"camera frame {i}: {msg}")
+        np.testing.assert_allclose(out.p.numpy(), ref.p, atol=5e-3, err_msg=f"laser frame {i}: {msg}")
+        assert abs(int(cam_out.n_tracked) - int(ref_cam.n_tracked)) <= 1, msg
+        assert abs(int(cam_out.n_ready) - int(ref_cam.n_ready)) <= 1, msg
     assert max(int(outs[i][1].n_ready) for i in steps) >= 3
 
 
 def test_camera_frontend_run_shadows_reference(reference):
-    prm, _, _, _, _, p_ref = reference
+    prm, _, _, _, _, p_ref, _ = reference
     tprm = convert.params_from_reference(dataclasses.asdict(prm))
     streams = _cut(tsim.simulate(tsim.default_track("L"), tsim.square_room(obstacles=True), tprm, **SIM), T_END_US)
     res = TFrontend(tprm, device="cpu").run(streams, chunk_size=16)
@@ -164,73 +203,3 @@ def test_camera_frontend_run_shadows_reference(reference):
     drift = np.linalg.norm(res.p - p_ref, axis=1)
     assert np.median(drift) < 0.05, drift.max()
 
-
-def _tree64(x):
-    if isinstance(x, torch.Tensor):
-        return x.double() if x.dtype == torch.float32 else x
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*[_tree64(v) for v in x])
-    return x
-
-
-def _diagnose(isa):
-    """The module docstring's ``python3 -m`` diagnosis."""
-    import tempfile
-
-    from liwslam_torch.core import geometry as geo
-    from liwslam_torch.frontend import matching as tmm
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "reference.pkl"
-        flags = os.environ.get("XLA_FLAGS", "")
-        if isa != "native":
-            flags = f"{flags} --xla_cpu_max_isa={isa}".strip()
-        subprocess.run([sys.executable, "-c", _CHILD, str(path)], cwd=ROOT, env=dict(os.environ, XLA_FLAGS=flags), check=True)
-        with open(path, "rb") as f:
-            prm, frames, k0, before, outs, _ = pickle.load(f)
-    fe = TFrontend(convert.params_from_reference(dataclasses.asdict(prm)), device="cpu")
-    cfg = (fe.consts, fe.dcfg, fe.scfg, fe.ccfg, fe.cdyn)
-    steps = [i for i in range(len(before)) if frames[k0 + i].cam_valid][:N_STEPS]
-    orig = tmm.match_lines
-    for j, i in enumerate(steps):
-        res = []
-        for wide in (False, True):
-            args = (
-                convert.track_state_from_numpy(before[i][0], "cpu"),
-                convert.cam_state_from_numpy(before[i][1], "cpu"),
-                convert.frame_input_cam_from_numpy(frames[k0 + i], "cpu"),
-            ) + cfg
-            calls = []
-            tmm.match_lines = lambda *a, **kw: calls.append((a, orig(*a, **kw))) or calls[-1][1]
-            try:
-                _, (out, _) = tcpl.tracking_step_cam(*(map(_tree64, args) if wide else args))
-            finally:
-                tmm.match_lines = orig
-            res.append((out, *calls[0]))
-        ref = outs[i][0]
-        (o32, a32, m32), (o64, _, m64) = res
-        print(
-            f"step {j}: laser |port f32 - reference| {np.abs(o32.p.numpy() - ref.p).max():.3e} m, "
-            f"|port f64 - reference| {np.abs(o64.p.double().numpy() - ref.p).max():.3e} m; n_match "
-            f"port f32 {int(o32.n_match)}, port f64 {int(o64.n_match)}, reference {int(ref.n_match)}",
-            flush=True,
-        )
-        rl, scan, cur_p, cur_q, Til = (_tree64(a) for a in a32)
-        T12 = geo.tf_inv(geo.make_tf(rl.pose_p, rl.pose_q) @ Til) @ (geo.make_tf(cur_p, cur_q) @ Til)
-        v2 = (geo.tf_apply(T12, scan.p2) - geo.tf_apply(T12, scan.p1))[:, :2]
-        v1 = (rl.p2 - rl.p1)[:, :2]
-        unit = lambda v: v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
-        top = torch.topk(torch.where(rl.valid[None, :], torch.abs(unit(v2) @ unit(v1).T), -1.0), 3, dim=1)
-        differ = (m32.valid != m64.valid) | ((m32.ref_p1.double() - m64.ref_p1).abs().amax(1) > 1e-6)
-        for line in torch.nonzero(differ).flatten().tolist():
-            vals = ", ".join(f"{v:.10f}" for v in top.values[line].tolist())
-            print(f"    scan line {line}: largest |cos| {vals} (reference lines {top.indices[line].tolist()})")
-
-
-if __name__ == "__main__":
-    import argparse
-
-    jax.config.update("jax_platforms", "cpu")
-    ap = argparse.ArgumentParser(description="Diagnose the camera-step parity test's float32 ties.")
-    ap.add_argument("--isa", default=XLA_ISA, help="XLA CPU ISA of the reference, or 'native'")
-    _diagnose(ap.parse_args().isa)

@@ -23,6 +23,17 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    kernels' launch counts set to 0 just before and read just after; checks
    that both kernels ran, and the ATE against ground truth; then the same
    run with B1's plain version in the loop (:func:`check_b1_along_path`);
+4b. back end (no TPU kernel of its own; plain PyTorch on the card): the
+   main path's result fed to ``KeyframeManager(device="cuda")`` after the
+   run (:func:`run_backend_posthoc`: loops, the ATE gate of
+   tests/test_loop_e2e.py, ms a keyframe and a solve, launches and syncs,
+   peak memory); ``OnlineRunner(overlap=True)`` on the same streams with
+   B1's and B2's counts set to 0 before and read after (:func:`run_online`:
+   the same loops and keyframe poses as a post-hoc feed, overlap > 0);
+   ``solve_pcg`` at K = 1024, 4096 and 10240, K = 1024 held against the
+   CPU (:func:`check_pcg`); ``score_pairs``' peak memory at P = 256
+   (:func:`check_score_memory`); and the CLI, ``python -m
+   liwslam_torch.run``, as a subprocess (:func:`run_cli`);
 5. camera path: the same ``Frontend.run`` with ``enable_camera`` on the
    same track with bench.py's camera arm at 848x480 and 30 Hz (its pixel
    sigma scaled to the image, ``CAM_SIGMA_PX``), counts set to 0 just
@@ -74,19 +85,23 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+# bench.py's single-stream capacities over the office preset
+BENCH_OVERRIDES = dict(
+    max_points=1152,
+    max_lines=64,
+    max_corners=16,
+    ref_capacity=1024,
+    max_imu_per_frame=32,
+    max_wheel_per_frame=8,
+    solver_max_iterations=8,
+    init_solver_max_iterations=25,
+)
+
+
 def bench_params():
     from liwslam_torch import config
 
-    return config.office().replace(
-        max_points=1152,
-        max_lines=64,
-        max_corners=16,
-        ref_capacity=1024,
-        max_imu_per_frame=32,
-        max_wheel_per_frame=8,
-        solver_max_iterations=8,
-        init_solver_max_iterations=25,
-    )
+    return config.office().replace(**BENCH_OVERRIDES)
 
 
 # bench.py's camera arm (bench.py:108-131) at the office preset's own image
@@ -691,7 +706,8 @@ def tracked_ate(res, streams, tracked, where):
 
 
 def run_main_path(prm, streams, dev):
-    """Frontend.run at bench size; returns (launches, ATE)."""
+    """Frontend.run at bench size; returns (launches, ATE, the result,
+    tracked frames/s)."""
     from liwslam_torch.frontend.driver import Frontend
     from liwslam_torch.ops import extract as ext
     from liwslam_torch.ops import track_solve as ts
@@ -726,7 +742,7 @@ def run_main_path(prm, streams, dev):
         f"ATE={ate:.4f}m wall={wall:.1f}s launches={json.dumps(launches)}",
         flush=True,
     )
-    return launches, ate
+    return launches, ate, res, fps
 
 
 def check_b1_along_path(prm, streams, dev, laser_ate):
@@ -793,6 +809,374 @@ def check_b1_along_path(prm, streams, dev, laser_ate):
             f"{int(o64[4][0])}",
             flush=True,
         )
+
+
+# ---------------------------------------------------------- back end ----
+
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def feed_backend(prm, res, dev):
+    """A KeyframeManager fed the front end's keyframes after the run, as
+    ``liwslam_torch.run`` feeds it."""
+    from liwslam_torch.backend.manager import KeyframeManager
+
+    mgr = KeyframeManager(prm, device=dev)
+    for ki, fi in enumerate(np.flatnonzero(res.is_keyframe)):
+        mgr.add_keyframe(
+            t_us=int(res.t_us[fi]), p=res.p[fi], q=res.q[fi], corners=res.kf_corners[ki], scan_lines=res.kf_scans[ki]
+        )
+    return mgr
+
+
+def backend_ate(mgr, res, streams):
+    """(front-end ATE over every frame, back-end ATE over the keyframes),
+    aligned, as tests/test_loop_e2e.py measures them."""
+    from liwslam_torch.eval import metrics
+
+    ts, Ts = mgr.trajectory()
+    pb = metrics.associate_by_time(ts, streams.gt_t_us)
+    pf = metrics.associate_by_time(res.t_us, streams.gt_t_us)
+    return (
+        metrics.ate_rmse(res.T_w_imu()[pf[:, 0]], streams.gt_T_w_imu[pf[:, 1]]),
+        metrics.ate_rmse(Ts[pb[:, 0]], streams.gt_T_w_imu[pb[:, 1]]),
+    )
+
+
+def run_backend_posthoc(prm, streams, res, dev):
+    """The laser path's result fed to ``KeyframeManager(device="cuda")``
+    after the run.  Checks at least one loop and the gate of
+    tests/test_loop_e2e.py (back-end ATE <= 1.2 x front-end ATE + 0.01 m).
+    Prints keyframes, loops, rejections, the solves (solver, K, E, ms,
+    Gauss-Newton iterations, host syncs), ms a keyframe (wall, and the
+    part up to the device's results on the host), pool capacity and peak
+    device memory; then feeds a second manager under the profiler for the
+    kernel launches and stream syncs a keyframe and a solve."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mgr = feed_backend(prm, res, dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    ate_front, ate_back = backend_ate(mgr, res, streams)
+    n_kf = len(mgr.keyframes)
+    check(n_kf == int(res.is_keyframe.sum()) and n_kf > 0, "back end: keyframe count")
+    check(len(mgr.loops_found) >= 1, "back end: no loop found on the loop track")
+    check(ate_back <= 1.2 * ate_front + 0.01, f"back end: ATE {ate_back} m > 1.2 x front end {ate_front} + 0.01")
+    solves = mgr.perf["solves"]
+    check(len(solves) >= 1, "back end: no pose-graph solve")
+    solve_ms = [1e3 * s["s"] for s in solves]
+    kf_ms = np.array([1e3 * t for t, _ in mgr.perf["kf_s"]])
+    dev_ms = np.array([1e3 * d for _, d in mgr.perf["kf_s"]])
+    solve_kf = set(mgr.perf.get("solve_kf", []))
+    no_solve = np.array([k not in solve_kf for k in range(n_kf)])
+
+    # the same feed under the profiler: launches and syncs inside the solves
+    # (a record_function range around each) and outside them
+    from liwslam_torch.backend import manager as km
+
+    solve = km.KeyframeManager.solve
+
+    def traced(self):
+        with torch.profiler.record_function("pg_solve"):
+            return solve(self)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    km.KeyframeManager.solve = traced
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            mgr2 = feed_backend(prm, res, dev)
+            torch.cuda.synchronize()
+    finally:
+        km.KeyframeManager.solve = solve
+    ev = prof.events()
+    ranges = [
+        (e.time_range.start, e.time_range.end)
+        for e in ev
+        if e.name == "pg_solve" and e.device_type == torch.autograd.DeviceType.CPU
+    ]
+    inside = lambda e: any(a <= e.time_range.start <= b for a, b in ranges)
+    count = lambda names: (
+        sum(1 for e in ev if e.name in names and inside(e)),
+        sum(1 for e in ev if e.name in names and not inside(e)),
+    )
+    l_solve, l_kf = count(LAUNCHES)
+    s_solve, s_kf = count(SYNCS)
+    n_sol = max(len(ranges), 1)
+    out = dict(
+        keyframes=n_kf, loops=[(int(a), int(b)) for a, b, _ in mgr.loops_found],
+        rejections=len(mgr.loop_rejections), ate_front=ate_front, ate_back=ate_back,
+    )
+    print(
+        f"back end (post hoc, laser path's result): keyframes={n_kf} loops={len(mgr.loops_found)} "
+        f"{out['loops']} rejections={len(mgr.loop_rejections)} solves={len(solves)} "
+        f"ATE front={ate_front:.4f}m back={ate_back:.4f}m wall={wall:.2f}s",
+        flush=True,
+    )
+    for s in solves:
+        print(
+            f"  solve: solver={s['solver']} K={s['K']} E={s['E']} ms={1e3 * s['s']:.1f} "
+            f"gn_iters={s['gn_iters']} host_syncs={s['syncs']}",
+            flush=True,
+        )
+    print(
+        f"  ms a keyframe (wall, keyframes without a solve): median {np.median(kf_ms[no_solve]):.2f} "
+        f"p95 {np.quantile(kf_ms[no_solve], 0.95):.2f} max {kf_ms[no_solve].max():.2f}; of it up to the "
+        f"device's results on the host: median {np.median(dev_ms[no_solve]):.2f} p95 "
+        f"{np.quantile(dev_ms[no_solve], 0.95):.2f}; ms a solve {[round(x, 1) for x in solve_ms]}",
+        flush=True,
+    )
+    print(
+        f"  profiled feed ({len(mgr2.keyframes)} keyframes, {len(ranges)} solves): kernel launches "
+        f"{l_kf / n_kf:.1f} a keyframe and {l_solve / n_sol:.0f} a solve; stream syncs {s_kf / n_kf:.2f} a "
+        f"keyframe and {s_solve / n_sol:.0f} a solve; descriptor pool {mgr._mf_pool['points'].shape[0]} slots "
+        f"for {mgr._mf_slots} maps; peak device memory above the start {peak / 2**20:.1f} MiB",
+        flush=True,
+    )
+    return out
+
+
+def run_online(prm, streams, dev, laser_res, posthoc, laser_fps):
+    """``OnlineRunner(overlap=True, device="cuda")`` on the same streams,
+    with B1's and B2's counts set to 0 just before and read just after.
+    Checks the kernels ran, that the online manager found the same loop
+    pairs as a post-hoc feed of its own front end's result and that its
+    keyframe trajectory matches that feed's within 1e-4 m (the criterion
+    of tests/test_online.py), and that the back end overlapped the front
+    end (overlap seconds > 0).  When the online front end's poses equal
+    the laser path's, the loops must also equal the first post-hoc run's."""
+    from liwslam_torch.online import OnlineRunner
+    from liwslam_torch.ops import extract as ext
+    from liwslam_torch.ops import track_solve as ts
+
+    runner = OnlineRunner(prm, overlap=True, device=dev)
+    stamps = []
+    fe_run = runner.fe.run
+
+    def run_with_stamps(streams, chunk_size, chunk_callback):
+        def cb(info):
+            stamps.append((time.perf_counter(), info["n"]))
+            chunk_callback(info)
+
+        return fe_run(streams, chunk_size=chunk_size, chunk_callback=cb)
+
+    runner.fe.run = run_with_stamps
+    ext.extract_lines_batched.launches = 0
+    ts.lm_solve_track_batched.launches = 0
+    ores = runner.run(streams, chunk_size=64)
+    launches = dict(extract_lines=ext.extract_lines_batched.launches, track_solve=ts.lm_solve_track_batched.launches)
+    res = ores.frontend
+    tracked = sum(n for _, n in stamps)
+    check(launches["track_solve"] == tracked, f"online: B1 launches {launches} != {tracked} tracked frames")
+    check(launches["extract_lines"] >= len(res.t_us), f"online: B2 launches {launches} < {len(res.t_us)} frames")
+    fps = sum(n for _, n in stamps[1:]) / (stamps[-1][0] - stamps[0][0])
+    ref = feed_backend(prm, res, dev)
+    loops = [(int(a), int(b)) for a, b, _ in ores.manager.loops_found]
+    check(loops == [(int(a), int(b)) for a, b, _ in ref.loops_found], f"online loops {loops} != post hoc's")
+    check(len(loops) >= 1, "online: no loop found")
+    ta, Ta = ores.manager.trajectory()
+    tb, Tb = ref.trajectory()
+    check(np.array_equal(ta, tb), "online: keyframe stamps differ from the post-hoc feed's")
+    dp = float(np.abs(Ta[:, :3, 3] - Tb[:, :3, 3]).max())
+    check(dp <= 1e-4, f"online: keyframe positions {dp} m from the post-hoc feed's (> 1e-4)")
+    same_fe = np.array_equal(res.p, laser_res.p)
+    if same_fe:
+        check(loops == posthoc["loops"], f"online loops {loops} != the laser path's post-hoc {posthoc['loops']}")
+    check(ores.overlap_s > 0, f"online: no overlap (backend busy {ores.backend_busy_s}s, drain {ores.drain_wait_s}s)")
+    print(
+        f"online: tracked_fps={fps:.1f} (laser path {laser_fps:.1f}) loops={len(loops)} {loops} "
+        f"max |dp| vs post hoc {dp:.2e}m; front end's poses equal the laser path's: {same_fe}; "
+        f"backend busy {ores.backend_busy_s:.2f}s, overlap {ores.overlap_s:.2f}s, drain wait "
+        f"{ores.drain_wait_s:.2f}s, wall {ores.wall_s:.1f}s, mailbox high water {runner.q_depth_max}; "
+        f"launches={json.dumps(launches)}",
+        flush=True,
+    )
+
+
+def pcg_graph(res, K, dev, seed=0, perm_seed=None):
+    """A pose graph of K nodes with the topology __graft_entry__.py:137-170
+    builds: the front end's poses first, the trajectory continued along x
+    (keeping the last front-end orientation: the graft entry's zero
+    rotation lays the wheel frame on its side, where the ground rows fight
+    the edges), K - 1 sequential edges and K/2 loop edges (weight 10)
+    between random nodes up to K/4 apart, 4K edge slots.  As odometry and
+    loop closure give them: the initial poses and sequential edges come
+    from a drifted copy of the trajectory (a seeded random walk of 2 mm a
+    node in x and y and 0.2 mrad a node of yaw), the loop edges from the
+    true poses.  ``perm_seed`` shuffles the edges' order (the order of the
+    solve's sums)."""
+    from liwslam_torch.backend import posegraph as pg
+    from liwslam_torch.core import geometry as geo
+
+    Ec = 4 * K
+    n_fe = min(len(res.p), K)
+    p = np.zeros((K, 3), np.float32)
+    q = np.zeros((K, 3), np.float32)
+    p[:n_fe], q[:n_fe] = res.p[:n_fe], res.q[:n_fe]
+    p[n_fe:, 0] = p[n_fe - 1, 0] + 0.25 * np.arange(1, K - n_fe + 1)
+    p[n_fe:, 1:] = p[n_fe - 1, 1:]
+    q[n_fe:] = q[n_fe - 1]
+    T = geo.make_tf(torch.as_tensor(p), torch.as_tensor(q)).double().numpy()
+    walk = np.random.default_rng(seed + 1)
+    yaw = np.cumsum(walk.normal(0, 2e-4, K))
+    dxy = np.cumsum(walk.normal(0, 2e-3, (K, 2)), 0)
+    yaw[0], dxy[0] = 0.0, 0.0  # the first node is fixed
+    T_odo = np.stack([geo.make_tf_np(np.zeros(3), [0.0, 0.0, yaw[k]]) @ T[k] for k in range(K)])
+    T_odo[:, :2, 3] += dxy
+    rng = np.random.default_rng(seed)
+    n_seq = K - 1
+    n_loop = min(Ec - n_seq, K // 2)
+    a = rng.integers(0, K - 1, n_loop)
+    b = np.minimum(a + rng.integers(2, K // 4, n_loop), K - 1)
+    ei = np.concatenate([np.arange(n_seq), a])
+    ej = np.concatenate([np.arange(1, K), b])
+    etf = np.concatenate([np.linalg.inv(T_odo[:-1]) @ T_odo[1:], np.linalg.inv(T[a]) @ T[b]])
+    ew = np.concatenate([np.ones(n_seq), np.full(n_loop, 10.0)])
+    if perm_seed is not None:
+        order = np.random.default_rng(perm_seed).permutation(len(ei))
+        ei, ej, etf, ew = ei[order], ej[order], etf[order], ew[order]
+    pad = Ec - len(ei)
+    ei, ej = np.pad(ei, (0, pad)), np.pad(ej, (0, pad))
+    etf = np.concatenate([etf, np.tile(np.eye(4), (pad, 1, 1))])
+    ew = np.pad(ew, (0, pad))
+    p0 = np.stack([geo.log_SE3_np(Tk)[0] for Tk in T_odo])
+    q0 = np.stack([geo.log_SE3_np(Tk)[1] for Tk in T_odo])
+    return pg.graph_from_numpy(p0, q0, K, ei, ej, etf, ew, n_seq + n_loop, dev)
+
+
+def check_pcg(prm, res, dev):
+    """``solve_pcg`` (gn_iters=20, cg_iters=60, as the manager calls it)
+    on :func:`pcg_graph` at K = 1024, 4096 and 10240: ms a solve (median of
+    3, host clock around the call and the poses' copy to the host), its
+    Gauss-Newton iterations and host syncs, at K = 1024 launches a solve
+    (profiler);
+    the K = 1024 solve against the same solve on the CPU.  The card's sums
+    (``index_add_``'s atomics) run in no fixed order, and this solve stops
+    at its 20 iterations before it settles (and on level poses the ground
+    tilt rows sit at the kink of |z x e_z|, where their Jacobian is
+    rounding noise); the order of the sums alone moves its answer.  The
+    CPU's solve of the same graph with its edges reordered is the
+    yardstick, measured in the run.  Held: max |dp|, max |dq| and
+    the relative cost within twice the reordered CPU solve's distance plus
+    1e-4 m, 1e-5 rad and 1e-5."""
+    from liwslam_torch.backend import posegraph as pg
+
+    consts = pg.make_pg_consts(prm, dev)
+    for K in (1024, 4096, 10240):
+        g = pcg_graph(res, K, dev)
+        ms, stats = [], {}
+        for _ in range(3):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g_out, cost = pg.solve_pcg(g, consts, gn_iters=20, cg_iters=60, stats=stats)
+            pq = torch.stack([g_out.p, g_out.q]).cpu().numpy()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        check(np.all(np.isfinite(pq)), f"PCG K={K}: non-finite poses")
+        line = (
+            f"PCG K={K} E={int(g.n_edges)} (slots {g.e_i.shape[0]}): ms a solve {statistics.median(ms):.1f} "
+            f"({', '.join(f'{m:.1f}' for m in ms)}), gn_iters={stats['gn_iters']} host_syncs={stats['syncs']}, "
+            f"cost {float(cost):.6g}"
+        )
+        if K == 1024:
+            # launches a solve, at one K only: the profiler's processing of
+            # a solve's events takes many times the solve, and a Gauss-Newton
+            # iteration launches the same kernels at every K, CG checks aside
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                pg.solve_pcg(g, consts, gn_iters=20, cg_iters=60)
+                torch.cuda.synchronize()
+            line += f", launches={sum(1 for e in prof.events() if e.name in LAUNCHES)}"
+            # the same solve on the CPU (held), and on the CPU with the
+            # edges in another order (a witness of how far the order of
+            # the sums alone moves this solve; the card's index_add_ sums
+            # in no fixed order)
+            cpu = []
+            for perm_seed in (None, 1):
+                gc = pcg_graph(res, K, "cpu", perm_seed=perm_seed)
+                t0 = time.perf_counter()
+                gc_out, cost_c = pg.solve_pcg(gc, pg.make_pg_consts(prm, "cpu"), gn_iters=20, cg_iters=60)
+                cpu.append((time.perf_counter() - t0, gc_out, float(cost_c)))
+            dist = lambda a, ca, b, cb: (
+                float((a.p.cpu() - b.p.cpu()).abs().max()),
+                float((a.q.cpu() - b.q.cpu()).abs().max()),
+                abs(ca - cb) / max(cb, 1e-20),
+            )
+            (cpu_s, gc_out, cost_c), (_, gc_perm, cost_perm) = cpu
+            dp, dq, rel = dist(g_out, float(cost), gc_out, cost_c)
+            wp, wq, wrel = dist(gc_perm, cost_perm, gc_out, cost_c)
+            tol = (2 * wp + 1e-4, 2 * wq + 1e-5, 2 * wrel + 1e-5)
+            line += (
+                f"; against the same solve on the CPU ({cpu_s:.1f}s there): max |dp| {dp:.2e} m |dq| {dq:.2e} rad "
+                f"rel cost {rel:.2e}; the CPU's against itself with the edges reordered: {wp:.2e}, {wq:.2e}, "
+                f"{wrel:.2e}; held to twice that plus 1e-4 m, 1e-5 rad, 1e-5"
+            )
+            check(dp <= tol[0] and dq <= tol[1] and rel <= tol[2], f"PCG K=1024 card vs CPU: {line}")
+        print(line, flush=True)
+
+
+def check_score_memory(dev):
+    """``score_pairs`` at the market preset's P = 256 against 64 candidate
+    maps (the most the reference scores in one program): peak device memory
+    above the inputs (< 2 GB) and ms a call; and at the office preset's
+    P = 128 against 8."""
+    from liwslam_torch import config
+    from liwslam_torch.backend import loop as loop_mod
+
+    for prm, M in ((config.market(), 64), (config.office(), 8)):
+        P = prm.map_corner_capacity
+        rng = np.random.default_rng(P)
+
+        def feat(seed):
+            pts = np.random.default_rng(seed).uniform(-10, 10, (2 * P, 3)).astype(np.float32) * [1, 1, 0]
+            return loop_mod.build_map_feature_device(
+                pts, np.ones(len(pts), bool), np.eye(4), d_res=prm.d_res, capacity=P, n_dist_bins=prm.n_dist_bins,
+                perm=rng.permutation(P), device=dev,
+            )
+
+        m1 = feat(0)
+        maps = [feat(s) for s in range(1, M + 1)]
+        m2 = loop_mod.MapFeature(*[torch.stack([getattr(m, f) for m in maps]) for f in loop_mod.MapFeature._fields[:6]], -1)
+        probes = torch.arange(prm.loop_probe_count, device=dev)
+        kw = dict(a_res=prm.a_res, n_angle_bins=prm.n_angle_bins, min_match_threshold=prm.laser_loop_min_match_threshold)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts, _ = loop_mod.score_pairs(m1, m2, probes, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda: loop_mod.score_pairs(m1, m2, probes, **kw), n=5, warm=1)
+        check(peak < 2e9, f"score_pairs P={P} M={M}: peak {peak} bytes >= 2 GB")
+        print(
+            f"score_pairs P={P} A={prm.n_angle_bins} M={M} probes={prm.loop_probe_count}: peak device memory above "
+            f"the inputs {peak / 2**20:.1f} MiB, {ms:.2f} ms a call (CUDA events), max count {int(counts.max())}",
+            flush=True,
+        )
+
+
+def run_cli():
+    """``python -m liwslam_torch.run --synthetic loop`` on the card, as a
+    subprocess, with bench.py's overrides as ``--param``, noise on and
+    chunks of 64: checks the report carries ``ate_backend_m`` and at least
+    one loop, and that fornt_end.txt, back_end.txt and map.pgm exist."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "liwslam_torch.run", "--synthetic", "loop", "--noise", "--chunk", "64", "--out", out]
+        for k, v in BENCH_OVERRIDES.items():
+            cmd += ["--param", f"{k}={v}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        files = {f: os.path.exists(os.path.join(out, f)) for f in ("fornt_end.txt", "back_end.txt", "map.pgm")}
+    check("ate_backend_m" in report and report.get("loops", 0) >= 1, f"CLI report {report}")
+    check(all(files.values()), f"CLI files {files}")
+    print(f"CLI: {wall:.1f}s, report {json.dumps(report)}, files {files}", flush=True)
 
 
 # ---------------------------------------------------------------- B3 ----
@@ -1416,7 +1800,14 @@ def main(argv):
     )
 
     rows = [check_extract(prm, frames, dev), check_track_solve(prm, dev)]
-    launches, laser_ate = run_main_path(prm, streams, dev)
+    launches, laser_ate, laser_res, laser_fps = run_main_path(prm, streams, dev)
+    t0 = time.time()
+    posthoc = run_backend_posthoc(prm, streams, laser_res, dev)
+    run_online(prm, streams, dev, laser_res, posthoc, laser_fps)
+    check_pcg(prm, laser_res, dev)
+    check_score_memory(dev)
+    run_cli()
+    print(f"back-end phases: {time.time() - t0:.1f}s", flush=True)
     check_b1_along_path(prm, streams, dev, laser_ate)
     cam_launches, captured = run_camera_path(cprm, streams, dev, laser_ate)
     rows += [check_lk(cprm, streams.cam_images, dev), check_cam_solve(prm, cprm, captured, dev)]

@@ -195,6 +195,16 @@ class Params:
     def line_max_tolerance_angle_rad(self) -> float:
         return math.radians(self.line_max_tolerance_angle)
 
+    @property
+    def n_dist_bins(self) -> int:
+        # des_i quick_des sizing: (100m / d_res + 1) bits (keyframe_manager.cpp:21-24)
+        return int(100.0 / self.d_res + 1)
+
+    @property
+    def n_angle_bins(self) -> int:
+        # match_des rotation-vote histogram (keyframe_manager.cpp:1052)
+        return int(2 * math.pi / self.a_res) + 2
+
     def mat_T_imu_to_wheel(self) -> np.ndarray:
         return _mat4(self.T_imu_to_wheel)
 

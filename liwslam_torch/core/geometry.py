@@ -8,12 +8,16 @@ inputs, so neither branch produces a non-finite value or tangent.
 
 ``log_SE3`` follows the reference convention: the translation part is the
 raw translation column, not the V-corrected SE3 log (common.h:166-171).
+
+The ``*_np`` functions at the end are float64 numpy twins for single poses,
+used by the back end's host bookkeeping.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -161,3 +165,78 @@ def dis_from_line(p, p1, p2):
     v = p - p2
     perp = v - torch.sum(d * v, -1, keepdim=True) * d
     return safe_norm(perp)
+
+
+def mat_from_quat(q):
+    """Unit quaternion (...,4) [w,x,y,z] -> rotation matrix (...,3,3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def normalize_tf(T):
+    """Re-orthonormalize the rotation block via quaternion round trip
+    (lie::normalize_tf)."""
+    return make_tf_R(T[..., :3, 3], mat_from_quat(quat_from_mat(T[..., :3, :3])))
+
+
+# --- numpy twins (host orchestration) ---------------------------------------
+# The back end's keyframe manager keeps its bookkeeping on the host in
+# float64 numpy, one pose at a time; these implement the same lie:: math.
+
+
+def make_tf_np(p, w):
+    """numpy twin of make_tf (single pose, float64)."""
+    w = np.asarray(w, np.float64)
+    p = np.asarray(p, np.float64)
+    th2 = float(w @ w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]], np.float64)
+    if th2 < 1e-16:
+        a, b = 1.0 - th2 / 6.0, 0.5 - th2 / 24.0
+    else:
+        th = np.sqrt(th2)
+        a, b = np.sin(th) / th, (1.0 - np.cos(th)) / th2
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + a * K + b * (K @ K)
+    T[:3, 3] = p
+    return T
+
+
+def quat_from_mat_np(R):
+    """numpy twin of quat_from_mat (single rotation, float64): Shepperd's
+    extraction by the largest pivot (first on ties), w >= 0."""
+    R = np.asarray(R, np.float64)
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+    k = int(np.argmax([tr, R[0, 0], R[1, 1], R[2, 2]]))
+    if k == 0:
+        s = np.sqrt(max(1.0 + tr, 1e-16)) * 2.0
+        q = [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s]
+    elif k == 1:
+        s = np.sqrt(max(1.0 + R[0, 0] - R[1, 1] - R[2, 2], 1e-16)) * 2.0
+        q = [(R[2, 1] - R[1, 2]) / s, 0.25 * s, (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s]
+    elif k == 2:
+        s = np.sqrt(max(1.0 + R[1, 1] - R[0, 0] - R[2, 2], 1e-16)) * 2.0
+        q = [(R[0, 2] - R[2, 0]) / s, (R[0, 1] + R[1, 0]) / s, 0.25 * s, (R[1, 2] + R[2, 1]) / s]
+    else:
+        s = np.sqrt(max(1.0 + R[2, 2] - R[0, 0] - R[1, 1], 1e-16)) * 2.0
+        q = [(R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s, (R[1, 2] + R[2, 1]) / s, 0.25 * s]
+    q = np.asarray(q)
+    q = q / np.linalg.norm(q)
+    return -q if q[0] < 0 else q
+
+
+def log_SE3_np(T):
+    """numpy twin of log_SE3 (single pose): (p, so3 w), |angle| <= pi."""
+    T = np.asarray(T, np.float64)
+    q = quat_from_mat_np(T[:3, :3])
+    qv = q[1:]
+    sin_half = np.linalg.norm(qv)
+    if sin_half < 1e-12:
+        w = 2.0 * qv
+    else:
+        w = (2.0 * np.arctan2(sin_half, q[0]) / sin_half) * qv
+    return T[:3, 3].copy(), w

@@ -628,8 +628,9 @@ class Frontend:
     def run(self, streams, chunk_size=32, chunk_callback=None) -> FrontendResult:
         """Run the full stream.  ``chunk_callback(info)`` fires after each
         chunk's outputs are back on the host, with the chunk's first frame
-        index, frame count, stamps and poses (as the reference package's
-        ``run`` hands chunks to its back end)."""
+        index, frame count, stamps and poses, and its keyframes' payloads
+        (frame index, stamp, pose, corners and scan lines), as the reference
+        package's ``run`` hands chunks to its back end."""
         use_cam = self.params.enable_camera
         images = streams.cam_images if use_cam else None
         frames, lt = self.pack_frames(streams)
@@ -656,6 +657,7 @@ class Frontend:
             else:
                 track, outs = self.run_chunk(track, self.stack_frames(frames[k : k + n]))
             outs = pl.FrameOutput(*[t.cpu().numpy() for t in outs])
+            chunk_kfs = []
             for i in range(n):
                 out_t.append(int(lt[k + i]))
                 for key, a in (("p", outs.p), ("q", outs.q), ("v", outs.v), ("bs", outs.bs)):
@@ -668,9 +670,18 @@ class Frontend:
                     kf_corners.append(outs.kf_corners[i][outs.kf_corner_valid[i]])
                     lv = outs.scan_line_valid[i]
                     kf_scans.append((outs.scan_p1[i][lv], outs.scan_p2[i][lv]))
+                    chunk_kfs.append(
+                        dict(
+                            frame_index=kf_indices[-1], t_us=int(lt[k + i]), p=outs.p[i], q=outs.q[i],
+                            corners=kf_corners[-1], scan_lines=kf_scans[-1],
+                        )
+                    )
             if chunk_callback is not None:
                 chunk_callback(
-                    dict(frame_start=n_init + k - k0, n=n, t_us=lt[k : k + n], p=outs.p, q=outs.q)
+                    dict(
+                        frame_start=n_init + k - k0, n=n, t_us=lt[k : k + n], p=outs.p, q=outs.q,
+                        keyframes=chunk_kfs,
+                    )
                 )
             k += n
 

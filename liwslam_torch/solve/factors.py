@@ -14,9 +14,7 @@ stacked residual replaces Ceres autodiff.
 - marginalization_factor.h:50 — the prior is ``J_lin (X - X_lin)``.
 
 - camera_factor.h:36-67 — whitened normalized-plane reprojection error.
-
-The edge and loop residuals are not ported yet (back end; ROADMAP queue
-A).
+- edge_factor.h:88-117 — the pose graph's relative-pose edge residual.
 """
 
 from __future__ import annotations
@@ -227,3 +225,21 @@ def camera_residual(p, q, world_point, cam_point_xy, T_imu_to_camera, sqrt_info)
     z = cam[..., 2:3]
     z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
     return sqrt_info * (cam_point_xy - cam[..., :2] / z)
+
+
+# --- pose-graph factors (back end) -------------------------------------------
+
+
+def edge_residual(p_i, q_i, p_j, q_j, tf12, info6, weight):
+    """edge_factor.h:88-117: log_SE3(tf_j^-1 tf_i tf12), diag-weighted;
+    broadcasts over leading (edge) dims, ``weight`` has one per edge."""
+    err = geo.tf_inv(geo.make_tf(p_j, q_j)) @ geo.make_tf(p_i, q_i) @ tf12
+    rp, rq = geo.log_SE3(err)
+    return weight[..., None] * info6 * torch.cat([rp, rq], -1)
+
+
+def edge_info6(params, device="cpu"):
+    """Intended diagonal of edge_noise (edge_factor.h:15-25; the reference
+    leaves J(1,1)=1 due to the J(1,2) typo; the intended value is used)."""
+    info = np.concatenate([1.0 / np.asarray(params.loop_sigma_p), 1.0 / np.asarray(params.loop_sigma_q)])
+    return torch.as_tensor(info.astype(np.float32), device=device)

@@ -18,9 +18,16 @@ iteration (the init window solve).  The per-frame tracking solve is
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple
 
 import torch
+
+# torch's forward-mode AD levels are process-wide state: two threads inside
+# torch.func.jacfwd / jvp at once corrupt each other's levels.  Every
+# forward-mode region of the package holds this lock (the online runner's
+# back-end worker linearizes while the front end runs).
+FORWARD_AD_LOCK = threading.RLock()
 
 
 class LMConfig(NamedTuple):
@@ -44,7 +51,8 @@ def linearize(res_fn, x):
         r = res_fn(y)
         return r, r
 
-    J, r = torch.func.jacfwd(both, has_aux=True)(x)
+    with FORWARD_AD_LOCK:
+        J, r = torch.func.jacfwd(both, has_aux=True)(x)
     return r, J
 
 

@@ -87,3 +87,23 @@ def test_jacobians_finite_at_zero_and_match_reference():
     # safe_norm: value and tangent finite at exactly zero
     g = torch.func.jacfwd(lambda v: tgeo.safe_norm(v[None])[0])(torch.zeros(3))
     assert torch.all(torch.isfinite(g))
+
+
+def test_quaternion_matrix_and_host_twins_match_reference():
+    """mat_from_quat and normalize_tf (float32, 1e-5), and the back end's
+    float64 numpy twins make_tf_np / log_SE3_np (to 1e-12: the same closed
+    forms in float64), near pi and at zero angle too."""
+    rng = np.random.default_rng(5)
+    w = _cases(rng)
+    q = np.asarray(jgeo.quat_from_mat(jgeo.exp_so3(jnp.asarray(w))))
+    j, t = _both("mat_from_quat", q)
+    np.testing.assert_allclose(t, j, **TOL)
+    T = np.array(jgeo.make_tf(jnp.asarray(rng.normal(size=(len(w), 3)).astype(np.float32)), jnp.asarray(w)))
+    T[:, :3, :3] += rng.normal(0, 1e-4, (len(w), 3, 3)).astype(np.float32)  # off the manifold
+    j, t = _both("normalize_tf", T)
+    np.testing.assert_allclose(t, j, **TOL)
+    for p, v in zip(rng.normal(size=(len(w), 3)), w.astype(np.float64)):
+        Tn = tgeo.make_tf_np(p, v)
+        np.testing.assert_allclose(Tn, jgeo.make_tf_np(p, v), rtol=0, atol=1e-12)
+        for a, b in zip(tgeo.log_SE3_np(Tn), jgeo.log_SE3_np(Tn)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the reference package,
 its entry points refuse to fall back to the CPU, its kernel build refuses
 to fall back when the CUDA compiler is missing, and its own copies of the
-reference's numpy-only modules (config presets, the simulator, the metrics)
-give what the reference's give."""
+reference's numpy-only modules (config presets, the simulator, the
+metrics, TUM files, the occupancy grid, the stage record, the async
+writer) give what the reference's give."""
 
 import ast
 import dataclasses
@@ -173,3 +174,77 @@ def test_solve_wrapper_runs_the_plain_version_only_on_the_cpu():
     inp = track_solve.TrackSolveInputs(**{k: torch.zeros(s, device="meta") for k, s in shapes.items()})
     with pytest.raises(ValueError, match="CUDA"):
         track_solve.lm_solve_track_batched(inp)
+
+
+def test_back_end_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from liwslam_torch import run
+    from liwslam_torch.backend.manager import KeyframeManager
+    from liwslam_torch.online import OnlineRunner
+    from liwslam_torch.utils import checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prm = tconfig.office()
+    for make in (lambda **k: KeyframeManager(prm, **k), lambda **k: OnlineRunner(prm, **k)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    checkpoint.save_manager(str(tmp_path / "m"), KeyframeManager(prm, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        checkpoint.load_manager(str(tmp_path / "m"), prm)
+    assert checkpoint.load_manager(str(tmp_path / "m"), prm, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main(["--synthetic", "L", "--out", str(tmp_path)])
+
+
+def test_io_eval_and_util_copies_match_reference(tmp_path):
+    from liwslam.eval import occupancy as jocc
+    from liwslam.io import tum as jtum
+    from liwslam.utils import asyncwriter as jaw
+    from liwslam.utils import record as jrec
+    from liwslam_torch.core import geometry as tgeo
+    from liwslam_torch.eval import occupancy as tocc
+    from liwslam_torch.io import tum as ttum
+    from liwslam_torch.utils import asyncwriter as taw
+    from liwslam_torch.utils import record as trec
+
+    rng = np.random.default_rng(0)
+    scans = [rng.uniform(-4, 4, (50, 2)) for _ in range(3)]
+    origins = rng.uniform(-1, 1, (3, 2))
+    (gj, oj), (gt, ot) = jocc.build_occupancy(scans, origins, 0.1), tocc.build_occupancy(scans, origins, 0.1)
+    np.testing.assert_array_equal(gt, gj)
+    assert ot == oj
+    jocc.write_pgm(tmp_path / "j.pgm", gj)
+    tocc.write_pgm(tmp_path / "t.pgm", gt)
+    assert (tmp_path / "j.pgm").read_bytes() == (tmp_path / "t.pgm").read_bytes()
+
+    # TUM: the port's float64 quaternions against the reference's float32
+    # ones, to float32's resolution; rotations near pi take other pivots
+    w = rng.normal(size=(20, 3))
+    w[:5] *= np.pi / np.linalg.norm(w[:5], axis=1, keepdims=True) * 0.999
+    T = np.stack([tgeo.make_tf_np(p, q) for p, q in zip(rng.normal(size=(20, 3)), w)])
+    t_us = np.arange(20) * 100000
+    jtum.write_tum(str(tmp_path / "j.txt"), t_us, T)
+    ttum.write_tum(str(tmp_path / "t.txt"), t_us, T)
+    rows = lambda f: np.loadtxt(tmp_path / f)
+    np.testing.assert_allclose(rows("t.txt"), rows("j.txt"), rtol=0, atol=2e-6)
+    for f in ("j.txt", "t.txt"):
+        (tj, Tj), (tt, Tt) = jtum.read_tum(str(tmp_path / f)), ttum.read_tum(str(tmp_path / f))
+        np.testing.assert_array_equal(tt, tj)
+        np.testing.assert_allclose(Tt, Tj, rtol=0, atol=2e-6)
+        np.testing.assert_allclose(Tt, T, rtol=0, atol=1e-5)
+
+    recs = (jrec.Record("x"), trec.Record("x"))
+    for r in recs:
+        for v in (1.0, 2.5, -3.0):
+            r.add_record("series", v)
+    assert recs[1].to_markdown() == recs[0].to_markdown()
+
+    out = []
+    for mod in (jaw, taw):
+        w8 = mod.AsyncWriter(maxsize=2)
+        for i in range(5):
+            w8.submit(out.append, (mod.__name__, i))
+        w8.submit(lambda: 1 / 0)
+        errs = w8.close()
+        assert len(errs) == 1 and "ZeroDivisionError" in errs[0]
+    assert [i for m, i in out if m == taw.__name__] == [i for m, i in out if m == jaw.__name__] == list(range(5))

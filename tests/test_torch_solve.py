@@ -177,3 +177,34 @@ def test_frozen_dims_checked_on_host():
     assert frozen == tts.FROZEN_FAST and all(free[k] == 0.0 for k in frozen)
     with pytest.raises(ValueError):
         tts.check_frozen([1.0] * 30, tts.FROZEN_POSE)
+
+
+def test_edge_residual_and_info_match_reference():
+    """The pose graph's edge residual, batched over edges in the port and
+    vmapped in the reference: float32, within 1e-4 of the residual scale
+    (info6 weighs rotation rows by 1e3)."""
+    from liwslam import config as jconfig
+    from liwslam_torch import config as tconfig
+
+    prm = jconfig.office()
+    info_j = np.asarray(jfac.edge_info6(prm))
+    info_t = tfac.edge_info6(tconfig.office())
+    np.testing.assert_array_equal(info_t.numpy(), info_j)
+    rng = np.random.default_rng(2)
+    E = 64
+    p_i, p_j = rng.normal(size=(2, E, 3)).astype(np.float32)
+    q_i, q_j = (rng.normal(size=(2, E, 3)) * 0.5).astype(np.float32)
+    Ti = tgeo.make_tf(torch.as_tensor(p_i), torch.as_tensor(q_i)).double().numpy()
+    Tj = tgeo.make_tf(torch.as_tensor(p_j + 0.01), torch.as_tensor(q_j + 0.001)).double().numpy()
+    tf12 = (np.linalg.inv(Ti) @ Tj).astype(np.float32)
+    w = rng.uniform(1, 10, E).astype(np.float32)
+    rj = np.asarray(
+        jax.vmap(lambda a, b, c, d, t, ww: jfac.edge_residual(a, b, c, d, t, jnp.asarray(info_j), ww))(
+            p_i, q_i, p_j, q_j, tf12, w
+        )
+    )
+    T = lambda a: torch.as_tensor(a)
+    rt = tfac.edge_residual(T(p_i), T(q_i), T(p_j), T(q_j), T(tf12), info_t, T(w)).numpy()
+    np.testing.assert_allclose(rt, rj, rtol=0, atol=1e-4 * np.abs(rj).max())
+    assert np.abs(rj).max() > 1.0
+

@@ -375,14 +375,14 @@ class KeyframeManager:
 
     # ------------------------------------------------------------------
 
-    def _build_graph(self, min_K=64, min_E=128):
+    def _build_graph(self):
         """The padded pose graph on the device; capacities are powers of two
-        (at least ``min_K`` / ``min_E``), as the reference pads them."""
+        (at least 64 poses and 128 edges), as the reference pads them."""
         prm = self.params
         K = len(self.keyframes)
         E = len(self.seq_edges) + len(self.loop_edges)
-        Kc = max(min_K, 1 << (K - 1).bit_length())
-        Ec = max(min_E, 1 << (E - 1).bit_length())
+        Kc = max(64, 1 << (K - 1).bit_length())
+        Ec = max(128, 1 << (E - 1).bit_length())
         p = np.zeros((Kc, 3), np.float32)
         q = np.zeros((Kc, 3), np.float32)
         for i, kf in enumerate(self.keyframes):

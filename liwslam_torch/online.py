@@ -13,11 +13,9 @@ chunk is tracked; whatever correction has landed when a chunk drains is
 applied to that chunk's live poses.  On the card the worker issues its
 device work on a CUDA stream of its own, so its kernels and its waits for
 them do not queue behind the front end's on the default stream; keyframe
-payloads cross as numpy arrays, so no tensor changes streams.  The live
-poses and files are computed on the host in numpy.
-
-``overlap=False`` processes keyframes inline at each chunk boundary
-instead: deterministic (the test mode), same data path.
+payloads cross as numpy arrays, so no tensor changes streams, and the
+run waits for the worker's stream before it hands the manager back.  The
+live poses and files are computed on the host in numpy.
 """
 
 from __future__ import annotations
@@ -79,12 +77,14 @@ class OnlineRunner:
     """Drives Frontend and KeyframeManager concurrently, on the card unless
     ``device="cpu"`` is asked for."""
 
-    def __init__(self, params, overlap=True, live_dir=None, live_every=4, device="cuda", backend=True):
+    LIVE_MAP_EVERY = 4  # chunks between live_map.pgm refreshes
+
+    def __init__(self, params, live_dir=None, device="cuda", backend=True):
         """``live_dir``: emit during-run artifacts there at chunk boundaries
         (the reference's visualization thread streams markers and occupancy
         while running, visualization.cpp:557-691): ``live_trajectory.txt``
         (TUM, re-based live poses, every chunk) and ``live_map.pgm``
-        (occupancy from loop-corrected keyframes, every ``live_every``
+        (occupancy from loop-corrected keyframes, every ``LIVE_MAP_EVERY``
         chunks), written on the async writer thread.
 
         ``backend=False`` builds no keyframe manager and no worker: the live
@@ -93,9 +93,7 @@ class OnlineRunner:
         self.device = resolve_device(device)
         self.fe = Frontend(params, device=self.device)
         self.mgr = KeyframeManager(params, device=self.device) if backend else None
-        self.overlap = overlap and backend
         self.live_dir = live_dir
-        self.live_every = max(1, int(live_every))
         self._writer = None
         self._chunk_no = 0
         self.live_emits = 0  # trajectory refreshes submitted during the run
@@ -107,7 +105,7 @@ class OnlineRunner:
         # a bounded mailbox: a back end that falls behind blocks the front
         # end at a chunk boundary instead of piling up keyframe payloads
         self._q: queue.Queue = queue.Queue(maxsize=256)
-        self._stream = torch.cuda.Stream(self.device) if self.overlap and self.device.type == "cuda" else None
+        self._stream = torch.cuda.Stream(self.device) if backend and self.device.type == "cuda" else None
         self._be_busy = 0.0
         self._fe_busy = 0.0
         self._worker = None
@@ -144,7 +142,7 @@ class OnlineRunner:
         from liwslam_torch.core import geometry as geo
         from liwslam_torch.io import tum
 
-        if self.overlap:
+        if self.mgr is not None:
             self._worker = threading.Thread(target=self._worker_loop, daemon=True)
             self._worker.start()
 
@@ -158,7 +156,7 @@ class OnlineRunner:
             self._writer.submit(
                 tum.write_tum, os.path.join(out, "live_trajectory.txt"), np.asarray(live_ts), np.stack(live_T) @ Tiw
             )
-            if self.mgr is not None and self._chunk_no % self.live_every == 0:
+            if self.mgr is not None and self._chunk_no % self.LIVE_MAP_EVERY == 0:
                 # occupancy from the loop-corrected keyframes; the pose arrays
                 # are copied here (the worker replaces them after solves)
                 snap = [
@@ -175,11 +173,8 @@ class OnlineRunner:
             # hand this chunk's keyframes to the back end (mailbox push,
             # keyframe_manager.cpp:399-406) ...
             for kf in info["keyframes"] if self.mgr is not None else ():
-                if self.overlap:
-                    self._q.put(kf)
-                    self.q_depth_max = max(self.q_depth_max, self._q.qsize())
-                else:
-                    self._process_one(kf)
+                self._q.put(kf)
+                self.q_depth_max = max(self.q_depth_max, self._q.qsize())
             # ... and re-base this chunk's live output with whatever
             # correction has landed (update_other_frame semantics)
             delta = self.mgr.modify_delta_tf() if self.mgr is not None else np.eye(4)
@@ -197,10 +192,15 @@ class OnlineRunner:
         finally:
             self._fe_busy = time.perf_counter() - t_start
             drain_wait = 0.0
-            if self.overlap:
+            if self._worker is not None:
                 t_d = time.perf_counter()
                 self._q.put(None)
                 self._worker.join()
+                if self._stream is not None:
+                    # the worker's last keyframe may leave pool writes queued
+                    # on its stream with no host read after them: finish them
+                    # before the caller uses the manager on another stream
+                    self._stream.synchronize()
                 drain_wait = time.perf_counter() - t_d
             errs = self._writer.close() if self._writer is not None else []
         if self._worker_exc is not None:

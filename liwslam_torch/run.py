@@ -136,7 +136,7 @@ def main(argv=None):
     if args.online:
         from liwslam_torch.online import OnlineRunner
 
-        runner = OnlineRunner(prm, overlap=True, live_dir=args.out, device=device, backend=not args.no_backend)
+        runner = OnlineRunner(prm, live_dir=args.out, device=device, backend=not args.no_backend)
         rec.begin_record()
         ores = runner.run(streams, chunk_size=args.chunk)
         rec.end_record("frontend total (online)")

@@ -9,6 +9,10 @@ the CPU, at tests/test_cli.py's small L-track size.
   end, the same keyframes fed to the same manager; back-end poses within
   1e-4 m (float32 solves), the rest equal.  It also writes the live
   trajectory and map.
+- A checkpoint of the online run's manager, as the runner hands it back,
+  holds what a checkpoint of a post-hoc feed of the same front-end result
+  holds: the same keys and descriptor arrays (equal), keyframe poses
+  within 1e-4 m.
 - ``--online --no-backend`` builds no keyframe manager and writes no
   back-end file and no live map (the online run's front end replayed)."""
 
@@ -19,8 +23,11 @@ import numpy as np
 import pytest
 
 from liwslam_torch import run as cli
+from liwslam_torch.backend.manager import KeyframeManager
 from liwslam_torch.frontend.driver import Frontend
 from liwslam_torch.io import tum
+from liwslam_torch.online import OnlineRunner
+from liwslam_torch.utils import checkpoint as ckpt
 
 ARGS = [
     "--preset", "office", "--synthetic", "L", "--chunk", "8", "--laser-hz", "4", "--beams", "540",
@@ -33,9 +40,14 @@ REFERENCE_KEYS = {"frames", "keyframes", "ate_frontend_m", "loops", "ate_backend
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The post-hoc and the --online run, and the online run's front end
-    (its result and the chunk payloads it handed over) for a replay."""
-    out, fe_run, record = {}, Frontend.run, []
+    """The post-hoc and the --online run, the online run's front end (its
+    result and the chunk payloads it handed over) for a replay, and the
+    online runner's result."""
+    out, fe_run, record, online_run, online = {}, Frontend.run, [], OnlineRunner.run, []
+
+    def keeping(self, streams, chunk_size=32):
+        online.append(online_run(self, streams, chunk_size=chunk_size))
+        return online[-1]
 
     def recording(self, streams, chunk_size=32, chunk_callback=None):
         infos = []
@@ -46,10 +58,12 @@ def runs(tmp_path_factory):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(Frontend, "run", recording)
+        mp.setattr(OnlineRunner, "run", keeping)
         for name, extra in (("posthoc", []), ("online", ["--online"])):
             d = tmp_path_factory.mktemp(name)
             out[name] = (d, cli.main(ARGS + ["--out", str(d)] + extra))
     out["online_front_end"] = record[-1]
+    out["online_result"] = online[-1]
     return out
 
 
@@ -79,6 +93,25 @@ def test_online_run_reports_what_the_posthoc_run_reports(runs):
     t_live, _ = tum.read_tum(str(do / "live_trajectory.txt"))
     assert 0 < len(t_live) < b["frames"]  # the tracked frames, without the init window
     assert os.path.exists(do / "live_map.pgm")
+
+
+def test_online_manager_checkpoint_matches_a_posthoc_feed(runs, tmp_path):
+    ores = runs["online_result"]
+    ckpt.save_manager(str(tmp_path / "online"), ores.manager)
+    res, mgr = ores.frontend, KeyframeManager(ores.manager.params, device="cpu")
+    for ki, fi in enumerate(np.flatnonzero(res.is_keyframe)):
+        mgr.add_keyframe(
+            t_us=int(res.t_us[fi]), p=res.p[fi], q=res.q[fi], corners=res.kf_corners[ki], scan_lines=res.kf_scans[ki]
+        )
+    ckpt.save_manager(str(tmp_path / "posthoc"), mgr)
+    a, b = (np.load(tmp_path / f"{n}.npz") for n in ("online", "posthoc"))
+    assert set(a.files) == set(b.files) and any(k.startswith("mf") for k in a.files)
+    assert (tmp_path / "online.json").read_text() == (tmp_path / "posthoc.json").read_text()
+    for k in a.files:
+        if k.startswith("kf") and k.endswith(("_p", "_q")):
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_online_no_backend_builds_no_manager(runs, tmp_path, monkeypatch):

@@ -4,7 +4,8 @@ A second package beside ``liwslam`` (the JAX reference, which stays as it
 is).  The port imports ``torch`` and numpy, never JAX and nothing of
 ``liwslam``; where it needs a numpy-only module of the reference it keeps
 its own copy (``config``, ``sim.world``, ``eval.metrics``, ``eval.occupancy``,
-``io.dispatch``, ``io.tum``, ``utils.record``, ``utils.asyncwriter``).
+``eval.debug_viz``, ``io.dispatch``, ``io.tum``, ``io.openloris``,
+``io.rosbag``, ``utils.record``, ``utils.asyncwriter``).
 
 Numeric rules carried over from the reference: float32 throughout, no TF32
 anywhere (set below: rotation algebra and the Gauss-Newton normal
@@ -13,7 +14,8 @@ rolling origin, and ``core.geometry.safe_norm`` wherever a norm is
 differentiated.
 
 Entry points (``frontend.driver.Frontend``, ``frontend.pipeline.
-tracking_step``, the kernel wrappers in ``ops``, ``backend.manager.
+tracking_step``, ``parallel.multiseq.batched_chunk_fn`` on a Frontend's
+constants, the kernel wrappers in ``ops``, ``backend.manager.
 KeyframeManager``, ``online.OnlineRunner``, ``utils.checkpoint.
 load_manager``, ``python -m liwslam_torch.run``) run on the card by default
 (``device="cuda"``) and on the CPU only when the caller asks.

@@ -29,6 +29,27 @@ def safe_norm(v, dim=-1, eps=_EPS, keepdim=False):
     return torch.sqrt(torch.clamp(s, min=eps * eps))
 
 
+def matmul(A, B):
+    """A @ B for small matrices, (...,m,k) @ (...,k,n), as elementwise
+    products summed over k along the last dim.
+
+    Batch-invariant on the card: every element takes the same
+    floating-point operations in the same order whatever the leading
+    dims, which a cuBLAS product does not (it picks its kernel by the
+    batch count, and the kernels round differently).  The multi-sequence
+    step (``parallel/multiseq``: the step under vmap, its products on
+    (B, ...) tensors) then gives each sequence the bits of its
+    single-stream step; the per-frame solve amplifies a one-ulp difference
+    ~1000-fold, and a flipped line match follows, so anything less parts
+    the two by ~1e-3 m within 32 frames."""
+    return torch.sum(A[..., :, None, :] * B.transpose(-1, -2)[..., None, :, :], -1)
+
+
+def matvec(A, v):
+    """A @ v for (...,m,k) and (...,k), batch-invariant as :func:`matmul`."""
+    return torch.sum(A * v[..., None, :], -1)
+
+
 def skew(w):
     """Cross-product matrix: skew(w) @ v == cross(w, v)."""
     z = torch.zeros_like(w[..., 0])
@@ -143,7 +164,7 @@ def tf_inv(T):
     R = T[..., :3, :3]
     p = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    return make_tf_R(-(Rt @ p[..., None])[..., 0], Rt)
+    return make_tf_R(-matvec(Rt, p), Rt)
 
 
 def tf_apply(T, pts):
@@ -153,8 +174,8 @@ def tf_apply(T, pts):
 
 
 def tf_compose(A, B):
-    """A @ B for (...,4,4) transforms."""
-    return A @ B
+    """A @ B for (...,4,4) transforms (batch-invariant, :func:`matmul`)."""
+    return matmul(A, B)
 
 
 def dis_from_line(p, p1, p2):

@@ -42,6 +42,7 @@ from liwslam_torch.frontend import matching as mm
 from liwslam_torch.frontend import pipeline as pl
 from liwslam_torch.frontend import preintegration as pre
 from liwslam_torch.io import dispatch as dp
+from liwslam_torch.parallel import multiseq
 from liwslam_torch.solve import factors as fac
 from liwslam_torch.solve import gn
 
@@ -92,6 +93,18 @@ def clean_scan(points, valid, min_range=0.1, min_spacing=0.01):
     d = np.linalg.norm(np.diff(pts[:, :2], axis=0), axis=-1)
     ok[1:] &= (d >= min_spacing) | ~ok[:-1]
     return pts, ok
+
+
+class Sequences(NamedTuple):
+    """B sequences packed and initialized for the batched step
+    (``parallel/multiseq``): their stacked states and, per sequence, its
+    packed frames (numpy), frame stamps and first tracked frame."""
+
+    states: "pl.TrackState"  # (B, ...)
+    frames: list  # per sequence: packed FrameInputs
+    stamps: list  # per sequence: (F_b,) frame stamps
+    first: list  # per sequence: index of its first tracked frame
+    n_common: int  # tracked frames every sequence has
 
 
 class PackedCam(NamedTuple):
@@ -618,6 +631,29 @@ class Frontend:
         """Stack FrameInputs (numpy) into one FrameInput of device tensors
         with a leading frame dim."""
         return to_device(pl.FrameInput(*[np.stack(xs) for xs in zip(*frames)]), self.device)
+
+    def init_sequences(self, streams_list) -> Sequences:
+        """Pack and initialize B sequences (laser path; each its own host
+        init window) and stack their states.  Sequences may differ in
+        length after the frame gate: ``n_common`` is the count of tracked
+        frames they all have, each counted from its own first tracked
+        frame."""
+        states, frames, stamps, first = [], [], [], []
+        for streams in streams_list:
+            fr, lt = self.pack_frames(streams)
+            track, k0, _, _, _ = self.initialize(fr, lt)
+            states.append(track)
+            frames.append(fr)
+            stamps.append(lt)
+            first.append(k0)
+        n_common = min(len(fr) - k0 for fr, k0 in zip(frames, first))
+        return Sequences(multiseq.stack_track_states(states), frames, stamps, first, n_common)
+
+    def stack_sequences(self, seqs: Sequences, j, n):
+        """Tracked frames j .. j+n of every sequence (each from its own
+        first tracked frame) as one FrameInput of (B, n, ...) tensors."""
+        rows = [zip(*fr[k0 + j : k0 + j + n]) for fr, k0 in zip(seqs.frames, seqs.first)]
+        return to_device(pl.FrameInput(*[np.stack([np.stack(xs) for xs in f]) for f in zip(*rows)]), self.device)
 
     def run_chunk(self, track, batch):
         return pl.run_chunk(track, batch, self.consts, self.dcfg, self.scfg)

@@ -105,9 +105,9 @@ def match_lines(
 ) -> LaserMatch:
     """do_match (laser_manager.cpp:244-348) as a dense score matrix."""
     Til = T_imu_to_laser
-    T1 = geo.make_tf(ref.pose_p, ref.pose_q) @ Til
-    T2 = geo.make_tf(cur_p, cur_q) @ Til
-    T_1_2 = geo.tf_inv(T1) @ T2
+    T1 = geo.tf_compose(geo.make_tf(ref.pose_p, ref.pose_q), Til)
+    T2 = geo.tf_compose(geo.make_tf(cur_p, cur_q), Til)
+    T_1_2 = geo.tf_compose(geo.tf_inv(T1), T2)
 
     # new lines in the reference laser frame
     q1 = geo.tf_apply(T_1_2, scan.p1)
@@ -132,7 +132,7 @@ def match_lines(
     v1 = (ref.p2 - ref.p1)[:, :2]
     v2n = v2 / torch.clamp(torch.linalg.norm(v2, dim=-1, keepdim=True), min=_EPS)
     v1n = v1 / torch.clamp(torch.linalg.norm(v1, dim=-1, keepdim=True), min=_EPS)
-    cosang = torch.abs(v2n @ v1n.T)
+    cosang = torch.abs(geo.matmul(v2n, v1n.T))
     ang = torch.arccos(torch.clamp(cosang, -1.0, 1.0))
     ang = torch.where(cand, ang, math.pi)
     best_ang, best = torch.min(ang, 1)
@@ -208,7 +208,7 @@ def add_scan(
     pair_seeded = SubmapPair(ref=fresh, spawning=pair.spawning, count=one, last_add_T=cur_T)
 
     # motion filter
-    dp, dq = geo.log_SE3(geo.tf_inv(pair.last_add_T) @ cur_T)
+    dp, dq = geo.log_SE3(geo.tf_compose(geo.tf_inv(pair.last_add_T), cur_T))
     still = (torch.linalg.norm(dp) < motion_filter_p) & (
         torch.linalg.norm(dq) < motion_filter_q
     )
@@ -217,7 +217,9 @@ def add_scan(
     Til_inv = geo.tf_inv(Til)
 
     def lines_in(sub: RefSubmap):
-        l_rel = Til_inv @ geo.tf_inv(geo.make_tf(sub.pose_p, sub.pose_q)) @ cur_T @ Til
+        l_rel = geo.tf_compose(
+            geo.tf_compose(geo.tf_compose(Til_inv, geo.tf_inv(geo.make_tf(sub.pose_p, sub.pose_q))), cur_T), Til
+        )
         return geo.tf_apply(l_rel, scan.p1), geo.tf_apply(l_rel, scan.p2)
 
     a1, a2 = lines_in(pair.ref)

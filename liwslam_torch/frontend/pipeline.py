@@ -239,10 +239,10 @@ def tracking_step(
     cur_v, cur_bs = state.win.v[-1], state.win.bs[-1]
 
     # 1. de-skew with the current twist estimate (trajectory.cpp:140-147)
-    T_w_l = geo.make_tf(cur_p, cur_q) @ Til
+    T_w_l = geo.tf_compose(geo.make_tf(cur_p, cur_q), Til)
     R_il = Til[:3, :3]
-    ang_laser = geo.log_SO3(R_il.T @ geo.exp_so3(state.angular_local) @ R_il)
-    pts = scan_mod.deskew(inp.points, inp.ray_t, T_w_l[:3, :3].T @ cur_v, ang_laser)
+    ang_laser = geo.log_SO3(geo.matmul(geo.matmul(R_il.T, geo.exp_so3(state.angular_local)), R_il))
+    pts = scan_mod.deskew(inp.points, inp.ray_t, geo.matvec(T_w_l[:3, :3].T, cur_v), ang_laser)
 
     # 2. preintegrate up to the frame stamp (trajectory.cpp:176-184)
     imu_c = pre.imu_interval_parallel(
@@ -263,8 +263,8 @@ def tracking_step(
     ang = imu_res.X[6:9] / torch.clamp(imu_res.Dt, min=1e-6)
 
     # 3. dead reckoning via the wheel delta (trajectory.cpp:82-98,189-192)
-    delta_imu = Tiw @ wheel_res.delta_T @ geo.tf_inv(Tiw)
-    pred_p, pred_q = geo.log_SE3(geo.make_tf(cur_p, cur_q) @ delta_imu)
+    delta_imu = geo.tf_compose(geo.tf_compose(Tiw, wheel_res.delta_T), geo.tf_inv(Tiw))
+    pred_p, pred_q = geo.log_SE3(geo.tf_compose(geo.make_tf(cur_p, cur_q), delta_imu))
 
     # 4. feature extraction (kernel B2 on the card)
     feats = extract(pts, inp.point_valid, dcfg, scfg)
@@ -301,8 +301,8 @@ def tracking_step(
     new_p, new_q, new_v, new_bs = win.p[-1], win.q[-1], win.v[-1], win.bs[-1]
 
     # 8. keyframe decision (trajectory.cpp:247-270)
-    cur_laser_T = geo.make_tf(new_p, new_q) @ Til
-    dkp, dkq = geo.log_SE3(geo.tf_inv(state.last_keyframe_T) @ cur_laser_T)
+    cur_laser_T = geo.tf_compose(geo.make_tf(new_p, new_q), Til)
+    dkp, dkq = geo.log_SE3(geo.tf_compose(geo.tf_inv(state.last_keyframe_T), cur_laser_T))
     moved = (geo.safe_norm(dkp) >= dcfg.kf_p_threshold) | (
         geo.safe_norm(dkq) >= dcfg.kf_q_threshold
     )

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from liwslam_torch.core import geometry as geo
+from liwslam_torch.solve import gn
 
 N_STATE = 15
 US = 1e-6  # microseconds -> seconds
@@ -102,10 +103,11 @@ def imu_rebase(carry: ImuCarry, shift_us) -> ImuCarry:
 
 def whitener_from_cov(P):
     """Lower-triangular W with W^T W == P^{-1}: triangular solve of
-    chol(P) (``cholesky_ex`` makes no host sync on the card)."""
-    L, _ = torch.linalg.cholesky_ex(P)
+    chol(P) (``cholesky_ex`` makes no host sync on the card), through the
+    library's batched routines whatever the batch (``gn.beside_identity``)."""
+    L, _ = torch.linalg.cholesky_ex(gn.beside_identity(P))
     eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
-    return torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.linalg.solve_triangular(L, eye, upper=False)[..., 0, :, :]
 
 
 def imu_result(carry: ImuCarry) -> ImuPreintResult:
@@ -131,7 +133,7 @@ def _prefix_products(seq):
     n = seq.shape[0]
     d = 1
     while d < n:
-        seq = torch.cat([seq[:d], seq[:-d] @ seq[d:]], 0)
+        seq = torch.cat([seq[:d], geo.matmul(seq[:-d], seq[d:])], 0)
         d *= 2
     return seq
 
@@ -146,8 +148,8 @@ def _compose_fq(F, Q):
             Q = torch.cat([Q, torch.zeros_like(Q[:1])], 0)
         F1, F2 = F[0::2], F[1::2]
         Q1, Q2 = Q[0::2], Q[1::2]
-        F = F2 @ F1
-        Q = F2 @ Q1 @ F2.transpose(-1, -2) + Q2
+        F = geo.matmul(F2, F1)
+        Q = geo.matmul(geo.matmul(F2, Q1), F2.transpose(-1, -2)) + Q2
     return F[0], Q[0]
 
 
@@ -178,14 +180,18 @@ def imu_interval_parallel(carry: ImuCarry, acc, gyro, t_us, mask, t_end_us, Q) -
     R_start = prefix[:-1]
     R_final = prefix[-1]
 
-    Ra = (R_start @ a_unb[..., None])[..., 0]
+    Ra = geo.matvec(R_start, a_unb)
     db = Ra * dts[:, None]
-    beta_start = carry.X[3:6] + torch.cumsum(db, 0) - db  # exclusive prefix
+    # sums over the samples as the last row of a cumsum: a scan along dim 0
+    # adds in sample order whatever the batch (a sum over a leading dim
+    # splits its adds by the batch count on the card; geo.matmul)
+    cs_db = torch.cumsum(db, 0)
+    beta_start = carry.X[3:6] + cs_db - db  # exclusive prefix
     da = beta_start * dts[:, None] + 0.5 * Ra * (dts * dts)[:, None]
     X = torch.cat(
         [
-            carry.X[0:3] + torch.sum(da, 0),
-            carry.X[3:6] + torch.sum(db, 0),
+            carry.X[0:3] + torch.cumsum(da, 0)[-1],
+            carry.X[3:6] + cs_db[-1],
             geo.log_SO3(R_final),
             carry.X[9:15],
         ]
@@ -198,7 +204,7 @@ def imu_interval_parallel(carry: ImuCarry, acc, gyro, t_us, mask, t_end_us, Q) -
     Fc = torch.cat(
         [
             torch.cat([z3, eye3, z3, z3, z3], -1),
-            torch.cat([z3, z3, -R_start @ geo.skew(a_unb), -R_start, z3], -1),
+            torch.cat([z3, z3, -geo.matmul(R_start, geo.skew(a_unb)), -R_start, z3], -1),
             torch.cat([z3, z3, -geo.skew(w_unb), z3, -eye3], -1),
             torch.zeros(n1, 6, 15, dtype=dtype, device=dev),
         ],
@@ -216,7 +222,7 @@ def imu_interval_parallel(carry: ImuCarry, acc, gyro, t_us, mask, t_end_us, Q) -
         -2,
     )
     Gdt = G * dts[:, None, None]
-    Qd = Gdt @ Q @ Gdt.transpose(-1, -2)
+    Qd = geo.matmul(geo.matmul(Gdt, Q), Gdt.transpose(-1, -2))
     F_tot, Q_tot = _compose_fq(F, Qd)
 
     n_valid = torch.sum(mask.to(torch.int32))
@@ -224,8 +230,8 @@ def imu_interval_parallel(carry: ImuCarry, acc, gyro, t_us, mask, t_end_us, Q) -
     has_any = n_valid > 0
     return carry._replace(
         X=X,
-        J=F_tot @ carry.J,
-        P=F_tot @ carry.P @ F_tot.T + Q_tot,
+        J=geo.matmul(F_tot, carry.J),
+        P=geo.matmul(geo.matmul(F_tot, carry.P), F_tot.T) + Q_tot,
         Dt=carry.Dt + torch.sum(dts),
         last_t_us=t_end,
         last_acc=torch.where(has_any, _row(acc, last_idx), carry.last_acc),
@@ -293,7 +299,7 @@ def _ordered_product(mats):
         if mats.shape[0] % 2:
             eye = torch.eye(mats.shape[-1], dtype=mats.dtype, device=mats.device)
             mats = torch.cat([mats, eye[None]], 0)
-        mats = mats[0::2] @ mats[1::2]
+        mats = geo.matmul(mats[0::2], mats[1::2])
     return mats[0]
 
 
@@ -333,7 +339,7 @@ def wheel_add_samples(c: WheelCarry, poses, t_us, mask) -> WheelCarry:
         poses[torch.clamp(prev_idx, 0, N - 1)],
         c.last_pose[None],
     )
-    dp, dth = geo.log_SE3(geo.tf_inv(prev_pose) @ poses)
+    dp, dth = geo.log_SE3(geo.tf_compose(geo.tf_inv(prev_pose), poses))
     safe_dt = torch.clamp(dt_pose, min=1e-6)[:, None]
     v = dp / safe_dt
     w = dth / safe_dt
@@ -349,7 +355,7 @@ def wheel_add_samples(c: WheelCarry, poses, t_us, mask) -> WheelCarry:
     la = torch.clamp(last_acc, 0, N - 1)
     sf = torch.clamp(setter, 0, N - 1)
     return WheelCarry(
-        delta_T=c.delta_T @ total,
+        delta_T=geo.tf_compose(c.delta_T, total),
         v=torch.where(any_acc, _row(v, la), c.v),
         omega=torch.where(any_acc, _row(w, la), c.omega),
         last_pose=torch.where(setter >= 0, _row(poses, sf), c.last_pose),
@@ -368,7 +374,7 @@ def wheel_update_only_t(c: WheelCarry, t_us) -> WheelCarry:
     ok = (dt > 0.0) & (dt < 10.0) & c.has_sample
     delta = geo.make_tf(c.v * dt, c.omega * dt)
     return c._replace(
-        delta_T=torch.where(ok, c.delta_T @ delta, c.delta_T),
+        delta_T=torch.where(ok, geo.tf_compose(c.delta_T, delta), c.delta_T),
         Dt=torch.where(ok, c.Dt + dt, c.Dt),
         last_update_t_us=torch.where(c.has_sample, t, c.last_update_t_us),
     )

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from liwslam_torch.core import geometry as geo
 from liwslam_torch.ops import extract as ext
 
 _EPS = 1e-8
@@ -93,7 +94,7 @@ def _find_corners(p1, p2, valid, resolution, max_corners, end_gap=None):
     d = p2 - p1
     length = torch.linalg.norm(d, dim=-1)
     dirs = d / torch.clamp(length, min=_EPS)[:, None]
-    ang = torch.arccos(torch.clamp(dirs @ dirs.T, -1.0, 1.0))
+    ang = torch.arccos(torch.clamp(geo.matmul(dirs, dirs.T), -1.0, 1.0))
     ang_ok = (ang > math.radians(30.0)) & (ang < math.radians(150.0))
 
     # infinite-line intersection via 2x2 solve: n_i . x = n_i . p_i

@@ -17,7 +17,10 @@ launch on the TPU) and of the line stages of
 (``csrc/extract_lines.cu``, one thread block per scan, each thread owning a
 run of consecutive points) for CUDA tensors and runs
 :func:`extract_lines_plain` for CPU tensors; :func:`extract_lines_batched`
-launches it on B scans at once.  Corner pairing
+launches it on B scans at once.  Both go through one operator
+(``liwslam::extract_lines``) whose ``torch.func.vmap`` rule folds the
+vmapped scans into that batch: B sequences stepped together
+(``parallel/multiseq``) extract in one launch.  Corner pairing
 (``frontend/scan._find_corners``) runs outside, on the compacted outputs.
 """
 
@@ -227,26 +230,11 @@ def _lib():
     return fn
 
 
-def extract_lines_batched(
-    points,
-    valid,
-    *,
-    continuous_threshold: float,
-    min_len: float,
-    max_dis: float,
-    tolerance_angle_rad: float,
-    max_lines: int,
-):
-    """Kernel B2 on B scans in one launch (one thread block a scan):
-    points (B,N,3) f32, valid (B,N) bool, CUDA tensors.  Returns (e1
-    (B,L,2), e2 (B,L,2), line_valid (B,L) bool, end_gap (B,L)), each scan's
-    rows past its winners zeroed."""
-    B, N = points.shape[0], points.shape[1]
-    L = int(max_lines)
+def _launch(points, valid, continuous_threshold, min_len, max_dis, tolerance_angle_rad, max_lines):
+    """Kernel B2 on the B scans of ``points`` (CUDA tensors) in one launch."""
+    B, N, L = points.shape[0], points.shape[1], int(max_lines)
     _check(points, "points", torch.float32, (B, N, 3))
     _check(valid, "valid", torch.bool, (B, N))
-    if not (1 <= N <= N_MAX and B >= 1 and L >= 1):
-        raise ValueError(f"extract_lines: need 1 <= N <= {N_MAX} points, B >= 1 scans and max_lines >= 1")
     fn = _lib()
     dev = points.device
     e1 = torch.empty((B, L, 2), dtype=torch.float32, device=dev)
@@ -275,6 +263,67 @@ def extract_lines_batched(
     return e1, e2, lv, end_gap
 
 
+@torch.library.custom_op("liwslam::extract_lines", mutates_args=())
+def _extract_lines_op(
+    points: torch.Tensor, valid: torch.Tensor, continuous_threshold: float, min_len: float,
+    max_dis: float, tolerance_angle_rad: float, max_lines: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B2 on B scans as one operator: kernel B2 for CUDA tensors, the plain
+    version (a loop over the scans) for CPU tensors."""
+    args = (continuous_threshold, min_len, max_dis, tolerance_angle_rad, max_lines)
+    if points.device.type == "cpu":
+        kw = dict(zip(("continuous_threshold", "min_len", "max_dis", "tolerance_angle_rad", "max_lines"), args))
+        outs = [extract_lines_plain(p, v, **kw) for p, v in zip(points, valid)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return _launch(points, valid, *args)
+
+
+def _extract_lines_vmap(info, in_dims, points, valid, *args):
+    """``torch.func.vmap`` of the operator: the vmapped scans join the batch,
+    (n, B, ...) -> (n*B, ...), so the n sequences' B2 is one launch."""
+    n = info.batch_size
+    flat = []
+    for t, d in zip((points, valid), in_dims[:2]):
+        t = t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+        flat.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
+    outs = _extract_lines_op(*flat, *args)
+    return tuple(o.reshape(n, o.shape[0] // n, *o.shape[1:]) for o in outs), (0,) * 4
+
+
+torch.library.register_vmap("liwslam::extract_lines", _extract_lines_vmap)
+
+
+def extract_lines_batched(
+    points,
+    valid,
+    *,
+    continuous_threshold: float,
+    min_len: float,
+    max_dis: float,
+    tolerance_angle_rad: float,
+    max_lines: int,
+):
+    """Line extraction on B scans: points (B,N,3) f32, valid (B,N) bool.
+    CUDA tensors launch kernel B2 once (one thread block a scan); CPU
+    tensors run :func:`extract_lines_plain` on each scan.  Returns (e1
+    (B,L,2), e2 (B,L,2), line_valid (B,L) bool, end_gap (B,L)), each scan's
+    rows past its winners zeroed.  Under ``torch.func.vmap`` the vmapped
+    scans join the batch of the one launch."""
+    B, N = points.shape[0], points.shape[1]
+    if points.device.type != "cpu":
+        for t, name, dtype, shape in ((points, "points", torch.float32, (B, N, 3)), (valid, "valid", torch.bool, (B, N))):
+            if t.device.type != "cuda":
+                raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+            if t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not (1 <= N <= N_MAX and B >= 1 and max_lines >= 1):
+            raise ValueError(f"extract_lines: need 1 <= N <= {N_MAX} points, B >= 1 scans and max_lines >= 1")
+    return _extract_lines_op(
+        points, valid, float(continuous_threshold), float(min_len), float(max_dis),
+        float(tolerance_angle_rad), int(max_lines),
+    )
+
+
 extract_lines_batched.launches = 0
 
 
@@ -288,20 +337,18 @@ def extract_lines(
     tolerance_angle_rad: float,
     max_lines: int,
 ):
-    """Line extraction for one scan: points (N,3) f32, valid (N,) bool.
-
-    CPU tensors run :func:`extract_lines_plain`; CUDA tensors launch kernel
-    B2 on the current stream (:func:`extract_lines_batched` with B = 1, or
-    raise).  Returns (e1 (L,2), e2 (L,2), line_valid (L,) bool, end_gap
-    (L,)), rows past the winners zeroed."""
-    kw = dict(
+    """Line extraction for one scan: points (N,3) f32, valid (N,) bool
+    (:func:`extract_lines_batched` with B = 1: kernel B2 on the current
+    stream for CUDA tensors, the plain version for CPU tensors).  Returns
+    (e1 (L,2), e2 (L,2), line_valid (L,) bool, end_gap (L,)), rows past the
+    winners zeroed."""
+    e1, e2, lv, end_gap = extract_lines_batched(
+        points[None],
+        valid[None],
         continuous_threshold=continuous_threshold,
         min_len=min_len,
         max_dis=max_dis,
         tolerance_angle_rad=tolerance_angle_rad,
         max_lines=max_lines,
     )
-    if points.device.type == "cpu":
-        return extract_lines_plain(points, valid, **kw)
-    e1, e2, lv, end_gap = extract_lines_batched(points[None], valid[None], **kw)
     return e1[0], e2[0], lv[0], end_gap[0]

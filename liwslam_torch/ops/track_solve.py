@@ -26,9 +26,12 @@ rotations; then the Schur reduction of frame 0 at the solution into the
 :func:`lm_solve_track` launches the hand-written CUDA kernel
 (``csrc/track_solve.cu``, one thread block per system, a batch grid of B
 systems) for CUDA tensors and runs :func:`lm_solve_track_plain` for CPU
-tensors.  Both take the inputs :func:`pack_inputs` builds: everything that
-does not depend on x is evaluated once there (reference endpoints moved
-to world, the wheel preintegration log, the laser row weights).
+tensors, through one operator (``liwslam::track_solve``) whose
+``torch.func.vmap`` rule folds the vmapped systems into that batch: B
+sequences stepped together (``parallel/multiseq``) solve in one launch.
+Both take the inputs :func:`pack_inputs` builds: everything that does not
+depend on x is evaluated once there (reference endpoints moved to world,
+the wheel preintegration log, the laser row weights).
 """
 
 from __future__ import annotations
@@ -103,7 +106,7 @@ def pack_inputs(x0, free, data, consts) -> TrackSolveInputs:
         ]
     )
     # frozen reference-pose side of the laser factors -> world, z dropped
-    T_w_i = geo.make_tf(data.laser_ref_p[0], data.laser_ref_q[0]) @ consts.T_imu_to_laser
+    T_w_i = geo.tf_compose(geo.make_tf(data.laser_ref_p[0], data.laser_ref_q[0]), consts.T_imu_to_laser)
     a1 = geo.tf_apply(T_w_i, data.laser_l1p1)[:, 0:2]
     a2 = geo.tf_apply(T_w_i, data.laser_l1p2)[:, 0:2]
     len1 = torch.linalg.norm(data.laser_l1p1 - data.laser_l1p2, dim=-1)
@@ -321,41 +324,18 @@ def _lib():
     return fn
 
 
-def lm_solve_track_batched(
-    inp: TrackSolveInputs,
-    *,
-    max_iters=10,
-    ftol=3e-4,
-    xtol=1e-7,
-    early_exit=True,
-    frozen_dims=FROZEN_POSE,
-):
-    """B systems: kernel B1 (one block each) for CUDA tensors, the plain
-    version for CPU tensors.  Returns (x (B,30), cost (B,), dH (B,15,15),
-    dg (B,15), iters (B,) int32).  The caller guarantees ``frozen_dims``
-    are not free (:func:`tracking_free_mask` / :func:`check_frozen`)."""
-    if inp.x0.device.type == "cpu":
-        return lm_solve_track_plain(
-            inp, max_iters=max_iters, ftol=ftol, xtol=xtol, early_exit=early_exit
-        )
-    B = inp.x0.shape[0]
-    M = inp.laser.shape[1]
-    shapes = dict(
-        x0=(B, 30), free=(B, 30), imu_J=(B, 15, 15), imu_sqrtP=(B, 15, 15),
-        imu_X=(B, 15), prior_J=(B, 15, 15), prior_X=(B, 15), T_il=(B, 4, 4),
-        T_iw=(B, 4, 4), wheel=(B, 9), scal=(B, 6), laser=(B, M, 11),
-    )
-    for name, shape in shapes.items():
-        t = getattr(inp, name)
-        if t.device.type != "cuda" or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {shape}, got {tuple(t.shape)}")
-    if B < 1 or not 1 <= M <= M_MAX:
-        raise ValueError(f"lm_solve_track: need B >= 1 and 1 <= M <= {M_MAX}, got B={B}, M={M}")
-    mask = 0
-    for k in frozen_dims:
-        mask |= 1 << int(k)
+_SHAPES = dict(
+    x0=(30,), free=(30,), imu_J=(15, 15), imu_sqrtP=(15, 15), imu_X=(15,), prior_J=(15, 15),
+    prior_X=(15,), T_il=(4, 4), T_iw=(4, 4), wheel=(9,), scal=(6,),
+)
+
+
+def _launch(inp: TrackSolveInputs, max_iters, ftol, xtol, early_exit, frozen_mask):
+    """Kernel B1 on the B systems of ``inp`` (CUDA tensors) in one launch."""
+    B, M = inp.x0.shape[0], inp.laser.shape[1]
+    for name, t in inp._asdict().items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
     fn = _lib()
     dev = inp.x0.device
     x = torch.empty((B, 30), dtype=torch.float32, device=dev)
@@ -365,7 +345,7 @@ def lm_solve_track_batched(
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
     err = fn(
         *[t.data_ptr() for t in inp],
-        B, M, int(max_iters), mask, int(bool(early_exit)), float(ftol), float(xtol),
+        B, M, int(max_iters), frozen_mask, int(bool(early_exit)), float(ftol), float(xtol),
         x.data_ptr(), cost.data_ptr(), dH.data_ptr(), dg.data_ptr(), iters.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -373,6 +353,70 @@ def lm_solve_track_batched(
         raise RuntimeError(f"track_solve kernel launch failed: cudaError_t {err}")
     lm_solve_track_batched.launches += 1
     return x, cost, dH, dg, iters
+
+
+@torch.library.custom_op("liwslam::track_solve", mutates_args=())
+def _track_solve_op(
+    x0: torch.Tensor, free: torch.Tensor, imu_J: torch.Tensor, imu_sqrtP: torch.Tensor,
+    imu_X: torch.Tensor, prior_J: torch.Tensor, prior_X: torch.Tensor, T_il: torch.Tensor,
+    T_iw: torch.Tensor, wheel: torch.Tensor, scal: torch.Tensor, laser: torch.Tensor,
+    max_iters: int, ftol: float, xtol: float, early_exit: bool, frozen_mask: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B1 on B systems as one operator: kernel B1 for CUDA tensors, the
+    plain version (a loop over the systems) for CPU tensors."""
+    inp = TrackSolveInputs(x0, free, imu_J, imu_sqrtP, imu_X, prior_J, prior_X, T_il, T_iw, wheel, scal, laser)
+    if x0.device.type == "cpu":
+        return lm_solve_track_plain(inp, max_iters=max_iters, ftol=ftol, xtol=xtol, early_exit=early_exit)
+    return _launch(inp, max_iters, ftol, xtol, early_exit, frozen_mask)
+
+
+def _track_solve_vmap(info, in_dims, *args):
+    """``torch.func.vmap`` of the operator: the vmapped systems join the
+    batch, (n, B, ...) -> (n*B, ...), so the n sequences' B1 is one launch
+    (one plain loop on the CPU) and never n."""
+    n = info.batch_size
+    flat = []
+    for t, d in zip(args[:12], in_dims[:12]):
+        t = t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+        flat.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
+    outs = _track_solve_op(*flat, *args[12:])
+    return tuple(o.reshape(n, o.shape[0] // n, *o.shape[1:]) for o in outs), (0,) * 5
+
+
+torch.library.register_vmap("liwslam::track_solve", _track_solve_vmap)
+
+
+def lm_solve_track_batched(
+    inp: TrackSolveInputs,
+    *,
+    max_iters=10,
+    ftol=3e-4,
+    xtol=1e-7,
+    early_exit=True,
+    frozen_dims=FROZEN_POSE,
+):
+    """B systems: kernel B1 (one block each, one launch) for CUDA tensors,
+    the plain version for CPU tensors.  Returns (x (B,30), cost (B,), dH
+    (B,15,15), dg (B,15), iters (B,) int32).  The caller guarantees
+    ``frozen_dims`` are not free (:func:`tracking_free_mask` /
+    :func:`check_frozen`).  Under ``torch.func.vmap`` the vmapped systems
+    join the batch of the one launch."""
+    B = inp.x0.shape[0]
+    M = inp.laser.shape[1]
+    if inp.x0.device.type != "cpu":
+        shapes = dict({k: (B,) + s for k, s in _SHAPES.items()}, laser=(B, M, 11))
+        for name, shape in shapes.items():
+            t = getattr(inp, name)
+            if t.device.type != "cuda" or t.dtype != torch.float32:
+                raise ValueError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if B < 1 or not 1 <= M <= M_MAX:
+            raise ValueError(f"lm_solve_track: need B >= 1 and 1 <= M <= {M_MAX}, got B={B}, M={M}")
+    mask = 0
+    for k in frozen_dims:
+        mask |= 1 << int(k)
+    return _track_solve_op(*inp, int(max_iters), float(ftol), float(xtol), bool(early_exit), mask)
 
 
 lm_solve_track_batched.launches = 0

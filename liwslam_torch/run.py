@@ -2,6 +2,7 @@
 
 Usage:
     python -m liwslam_torch.run --preset office --synthetic loop [--no-backend] [--device cpu]
+    python -m liwslam_torch.run --preset office --sequence /path/to/seq[.npz|.bag] [--gt gt.txt] [--debug-viz]
 
 Port of ``liwslam/run.py`` (the reference's ROS node on a dataset,
 ``launch/lvio_2d_office.launch``): runs odometry, feeds keyframes to the
@@ -11,9 +12,10 @@ keyframe manager, writes TUM trajectories (``fornt_end.txt`` /
 report with the ATE when ground truth is available.  Runs on the card
 unless ``--device cpu`` is given.
 
-``--sequence`` (OpenLORIS directories, ``.npz`` and ROS1 bags) and
-``--debug-viz`` need ``io/openloris.py``, ``io/rosbag.py`` and
-``eval/debug_viz.py``, which the port does not have yet: both raise.
+``--sequence`` reads an OpenLORIS directory, an ``.npz`` or a ROS1 bag
+(``io/openloris``, ``io/rosbag``); ``--debug-viz`` writes the merged
+keyframe scans before and after loop correction and the trajectory with
+its loop edges (``eval/debug_viz``; PNG, or PPM without PIL).
 """
 
 from __future__ import annotations
@@ -25,9 +27,6 @@ import sys
 import tempfile
 
 import numpy as np
-
-NOT_PORTED = "not ported to liwslam_torch yet (ROADMAP.md, queue A: {}); use `python -m liwslam.run` for it"
-
 
 def _parse_params(preset, kvs):
     from liwslam_torch import config
@@ -74,13 +73,49 @@ def _occupancy_map(mgr, prm, path):
     return int((grid >= 0).sum())
 
 
+def _debug_viz(mgr, res, est, prm, out):
+    """Merged keyframe scans with the front end's and the back end's poses
+    and the trajectories with the loop edges, written on the async writer's
+    thread (the reference's visualization thread); returns the writer's
+    errors."""
+    from liwslam_torch.core import geometry as geo
+    from liwslam_torch.eval import debug_viz as dv
+    from liwslam_torch.utils.asyncwriter import AsyncWriter
+
+    Til = prm.mat_T_imu_to_laser()
+    # float32 poses, as the reference's renderings build them
+    T_wl = lambda p, q: geo.make_tf_np(np.float32(p), np.float32(q)) @ Til
+    kf_idx = np.flatnonzero(res.is_keyframe)
+    merged_front, merged_back = [], []
+    for ki, kf in enumerate(mgr.keyframes):
+        l1, l2 = kf.scan_lines
+        if len(l1) == 0:
+            continue
+        if ki < len(kf_idx):
+            merged_front.append(dv.transform_lines(l1, l2, T_wl(res.p[kf_idx[ki]], res.q[kf_idx[ki]])))
+        merged_back.append(dv.transform_lines(l1, l2, T_wl(kf.p, kf.q)))
+    writer = AsyncWriter()
+    writer.submit(dv.render_merged_scans, os.path.join(out, "merged_scans_frontend.png"), merged_front)
+    writer.submit(dv.render_merged_scans, os.path.join(out, "merged_scans_backend.png"), merged_back)
+    _, Ts = mgr.trajectory()
+    loop_pairs = [(mgr.keyframes[i].p[:2], mgr.keyframes[j].p[:2]) for i, j, _ in mgr.loop_edges]
+    writer.submit(
+        dv.render_trajectories, os.path.join(out, "trajectory.png"),
+        [(est[:, :2, 3], dv.C_TRAJ_A), (Ts[:, :2, 3], dv.C_TRAJ_B)], loop_pairs,
+    )
+    return writer.close()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="liwslam_torch: front end + back end + evaluation on one stream")
     ap.add_argument("--preset", default="office", choices=["base", "office", "corridor", "cafe", "market"])
     ap.add_argument("--synthetic", default=None, choices=[None, "loop", "smallloop", "L"])
-    ap.add_argument("--sequence", default=None, help="OpenLORIS dir, .npz, or ROS1 .bag (" + NOT_PORTED.format("io/openloris.py, io/rosbag.py") + ")")
+    ap.add_argument("--sequence", default=None, help="OpenLORIS dir, .npz, or ROS1 .bag")
     ap.add_argument("--gt", default=None, help="TUM ground-truth file (for .bag input)")
-    ap.add_argument("--camera-topic", default=None, help="bag camera topic (with --sequence)")
+    ap.add_argument(
+        "--camera-topic", default=None,
+        help="bag camera topic (e.g. /d400/color/image_raw); loaded into the streams, solved when enable_camera is set",
+    )
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "liwslam_out"))
     ap.add_argument("--no-backend", action="store_true")
     ap.add_argument(
@@ -97,39 +132,46 @@ def main(argv=None):
         "--param", action="append", default=[], metavar="KEY=VALUE",
         help="override any Params field (repeatable), e.g. --param loop_max_dis=2.5",
     )
-    ap.add_argument("--debug-viz", action="store_true", help="debug renderings (" + NOT_PORTED.format("eval/debug_viz.py") + ")")
+    ap.add_argument(
+        "--debug-viz", action="store_true",
+        help="write debug renderings (merged keyframe scans before and after loop correction, trajectory and "
+        "loop-edge map) into --out",
+    )
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.sequence:
-        raise NotImplementedError("--sequence: " + NOT_PORTED.format("io/openloris.py, io/rosbag.py"))
-    if args.debug_viz:
-        raise NotImplementedError("--debug-viz: " + NOT_PORTED.format("eval/debug_viz.py"))
-    if not args.synthetic:
-        ap.error("need --synthetic")
+    if not (args.synthetic or args.sequence):
+        ap.error("need --synthetic or --sequence")
 
     from liwslam_torch import resolve_device
     from liwslam_torch.backend.manager import KeyframeManager
     from liwslam_torch.eval import metrics
     from liwslam_torch.frontend.driver import Frontend
-    from liwslam_torch.io import tum
+    from liwslam_torch.io import openloris, tum
     from liwslam_torch.sim import world as sim
     from liwslam_torch.utils.record import Record
 
     device = resolve_device(args.device)
     prm = _parse_params(args.preset, args.param)
     rec = Record("pipeline")
-    streams = sim.simulate(
-        sim.default_track(args.synthetic),
-        sim.square_room(size=12.0, obstacles=True, rich=True),
-        prm,
-        imu_hz=200,
-        wheel_hz=20,
-        laser_hz=args.laser_hz,
-        n_beams=args.beams,
-        noise=args.noise,
-        seed=1,
-    )
+    if args.synthetic:
+        streams = sim.simulate(
+            sim.default_track(args.synthetic),
+            sim.square_room(size=12.0, obstacles=True, rich=True),
+            prm,
+            imu_hz=200,
+            wheel_hz=20,
+            laser_hz=args.laser_hz,
+            n_beams=args.beams,
+            noise=args.noise,
+            seed=1,
+        )
+    elif args.sequence.endswith(".bag"):
+        streams = openloris.load_bag(
+            args.sequence, T_imu_to_wheel=prm.mat_T_imu_to_wheel(), gt_path=args.gt, camera_topic=args.camera_topic
+        )
+    else:
+        streams = openloris.load_sequence(args.sequence, T_imu_to_wheel=prm.mat_T_imu_to_wheel())
 
     os.makedirs(args.out, exist_ok=True)
     mgr = None
@@ -156,6 +198,12 @@ def main(argv=None):
         pairs = metrics.associate_by_time(res.t_us, streams.gt_t_us)
         if len(pairs):
             report["ate_frontend_m"] = metrics.ate_rmse(est[pairs[:, 0]], streams.gt_T_w_imu[pairs[:, 1]])
+        else:
+            print(
+                "gt provided but no timestamp associations found (check that the gt file uses the bag's "
+                "absolute time base)",
+                file=sys.stderr,
+            )
 
     if not args.no_backend:
         if mgr is None:
@@ -178,6 +226,11 @@ def main(argv=None):
         cells = _occupancy_map(mgr, prm, os.path.join(args.out, "map.pgm"))
         if cells is not None:
             report["map_cells"] = cells
+        if args.debug_viz:
+            errs = _debug_viz(mgr, res, est, prm, args.out)
+            if errs:
+                print("\n".join(errs), file=sys.stderr)
+            report["debug_viz"] = True
 
     rec.dump(args.out)
     print(json.dumps(report))

@@ -154,17 +154,33 @@ def marginalize(res_fn: Callable, x: torch.Tensor, keep: int):
     return lin_J, lin_res, x[m:]
 
 
+def beside_identity(A):
+    """A (..., n, n) stacked with an identity along a new dim -3: (..., 2,
+    n, n).  A small dense decomposition on the card may take another
+    library routine for one matrix than for a batch, and the two may round
+    differently (the Cholesky does: tools/probe_batch_invariance.py); one
+    identity beside every matrix sends the single-stream step and the
+    multi-sequence step (``parallel/multiseq``, B matrices under vmap)
+    through the same batched routine, whose result for a matrix does not
+    depend on the batch.  Without it, B sequences stepped together part
+    from their single-stream runs by ~1e-3 m within 32 frames."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+    return torch.stack([A, eye], -3)
+
+
 def sqrt_prior(dH, dg):
     """Square-root prior from a Schur-reduced (information, gradient) pair:
     the eigendecomposition tail of ``marginalize`` (solver.cpp:390-405).
 
     ``torch.linalg.eigh`` checks its solver's status on the host, so on the
-    card this is the one host sync of the per-frame step."""
+    card this is the one host sync of the per-frame step (one a frame for
+    all B sequences under vmap)."""
     dH = 0.5 * (dH + dH.T)
     eps = 1e-8
-    S, V = torch.linalg.eigh(dH)
+    S, V = torch.linalg.eigh(beside_identity(dH))
+    S, V = S[..., 0, :], V[..., 0, :, :]
     S_cl = torch.where(S > eps, S, 0.0)
     S_inv = torch.where(S > eps, 1.0 / S, 0.0)
     lin_J = torch.sqrt(S_cl)[:, None] * V.T
-    lin_res = -((torch.sqrt(S_inv)[:, None] * V.T) @ dg)
+    lin_res = -torch.sum(torch.sqrt(S_inv)[:, None] * V.T * dg, -1)
     return lin_J, lin_res

@@ -194,15 +194,51 @@ def test_back_end_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, t
     assert checkpoint.load_manager(str(tmp_path / "m"), prm, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--synthetic", "L", "--out", str(tmp_path)])
+    # the readers' path and the renderings (the device is resolved before
+    # anything is read)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main(["--sequence", str(tmp_path / "seq.bag"), "--debug-viz", "--out", str(tmp_path)])
+
+
+def test_batched_step_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
+    from liwslam_torch.frontend.driver import Frontend
+    from liwslam_torch.ops import extract, track_solve
+    from liwslam_torch.parallel import multiseq
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prm = tconfig.office()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Frontend(prm).init_sequences([])
+    fe = Frontend(prm, device="cpu")
+    run = multiseq.batched_chunk_fn(fe.consts, fe.dcfg, fe.scfg)
+    assert callable(run) and fe.consts.T_imu_to_laser.device.type == "cpu"
+    # under vmap, a tensor that is neither on the CPU nor a float32 CUDA
+    # tensor is refused by both kernels' wrappers, not computed
+    kw = dict(continuous_threshold=0.1, min_len=0.1, max_dis=0.1, tolerance_angle_rad=0.1, max_lines=4)
+    pts = torch.zeros((2, 8, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        torch.func.vmap(lambda p, v: extract.extract_lines(p, v, **kw))(pts, torch.ones((2, 8), dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        extract.extract_lines_batched(pts, torch.ones((2, 8), dtype=torch.bool, device="meta"), **kw)
+    shapes = dict(track_solve._SHAPES, laser=(4, 11))
+    inp = track_solve.TrackSolveInputs(**{k: torch.zeros((2, 1) + s, device="meta") for k, s in shapes.items()})
+    with pytest.raises(ValueError, match="CUDA"):
+        torch.func.vmap(lambda *t: track_solve.lm_solve_track_batched(track_solve.TrackSolveInputs(*t)))(*inp)
 
 
 def test_io_eval_and_util_copies_match_reference(tmp_path):
+    from liwslam.eval import debug_viz as jdv
     from liwslam.eval import occupancy as jocc
+    from liwslam.io import openloris as jol
+    from liwslam.io import rosbag as jbag
     from liwslam.io import tum as jtum
     from liwslam.utils import asyncwriter as jaw
     from liwslam.utils import record as jrec
     from liwslam_torch.core import geometry as tgeo
+    from liwslam_torch.eval import debug_viz as tdv
     from liwslam_torch.eval import occupancy as tocc
+    from liwslam_torch.io import openloris as tol
+    from liwslam_torch.io import rosbag as tbag
     from liwslam_torch.io import tum as ttum
     from liwslam_torch.utils import asyncwriter as taw
     from liwslam_torch.utils import record as trec
@@ -248,3 +284,57 @@ def test_io_eval_and_util_copies_match_reference(tmp_path):
         errs = w8.close()
         assert len(errs) == 1 and "ZeroDivisionError" in errs[0]
     assert [i for m, i in out if m == taw.__name__] == [i for m, i in out if m == jaw.__name__] == list(range(5))
+
+    # OpenLORIS: the text loader and the .npz round trip, across packages
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    t0 = 1560000000.0
+    np.savetxt(seq / "imu.txt", np.column_stack([t0 + np.arange(20) * 0.01, rng.normal(size=(20, 6))]))
+    q = rng.normal(size=(5, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    np.savetxt(seq / "odom.txt", np.column_stack([t0 + np.arange(5) * 0.05, rng.normal(size=(5, 3)), q]))
+    with open(seq / "laser.txt", "w") as f:
+        for k in range(3):
+            r = " ".join(f"{x:.4f}" for x in rng.uniform(0.05, 5.0, 8))
+            f.write(f"{t0 + 0.05 * k} {-np.pi} {2 * np.pi / 8} 8 {r}\n")
+    sj, st = jol.load_sequence(str(seq)), tol.load_sequence(str(seq))
+    for name in tol._FIELDS:
+        a, b = getattr(sj, name), getattr(st, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6 if name == "wheel_pose" else 0, err_msg=name)
+    tol.save_npz(str(tmp_path / "t.npz"), st)
+    back = jol.load_npz(str(tmp_path / "t.npz"))
+    for name in tol._FIELDS:
+        np.testing.assert_array_equal(getattr(back, name), getattr(st, name), err_msg=name)
+
+    # ROS1 bags: a bz2 bag written by the port, read by both readers; lz4
+    # frames across the two codecs
+    bag = str(tmp_path / "t.bag")
+    with tbag.BagWriter(bag, compression="bz2", indexed=True) as w:
+        w.write("/d400/imu0", "sensor_msgs/Imu", 1.0, tbag.serialize_imu(1.0, [0, 0, 9.8], [0, 0, 0.1]))
+        w.write("/scan", "sensor_msgs/LaserScan", 1.01, tbag.serialize_laser_scan(1.01, [2.0, np.nan, 2.1], 0.0, 0.01))
+        w.write("/odom", "nav_msgs/Odometry", 1.02, tbag.serialize_odometry(1.02, [0.5, 0, 0], [0, 0, 0.383, 0.924]))
+    mj, mt = list(jbag.read_messages(bag)), list(tbag.read_messages(bag))
+    assert [m[:2] for m in mt] == [m[:2] for m in mj] and len(mt) == 3
+    for (_, _, a), (_, _, b) in zip(mj, mt):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(a[k]), err_msg=k)
+    blob = rng.integers(0, 256, 70000, dtype=np.uint8).tobytes() + b"abcd" * 300
+    assert jbag.lz4_frame_decompress(tbag.lz4_frame_compress(blob)) == blob
+    assert tbag.lz4_frame_decompress(jbag.lz4_frame_compress(blob)) == blob
+    assert tbag._xxh32(blob) == jbag._xxh32(blob)
+
+    # debug renderings: the same files, byte for byte
+    px = rng.uniform(-3, 3, (200, 2))
+    l1, l2 = rng.uniform(-3, 3, (5, 2)), rng.uniform(-3, 3, (5, 2))
+    traj = np.stack([np.linspace(0, 2, 20), np.sin(np.linspace(0, 2, 20))], -1)
+    img = rng.uniform(0, 1, (60, 80)).astype(np.float32)
+    for tag, dv in (("j", jdv), ("t", tdv)):
+        dv.render_frame_matches(str(tmp_path / f"{tag}_frame.png"), px, l1, l2, l1[:1], l1 + 0.05, l2 + 0.05, l1[:2], l2[:2], l1[:2] + 0.05, l2[:2] + 0.05)
+        dv.render_merged_scans(str(tmp_path / f"{tag}_merged.png"), [(l1, l2), (l1 + 0.1, l2)])
+        dv.render_trajectories(str(tmp_path / f"{tag}_traj.png"), [(traj, dv.C_TRAJ_A), (traj + 0.1, dv.C_TRAJ_B)], [(traj[0], traj[-1])])
+        dv.render_camera_tracks(str(tmp_path / f"{tag}_cam.png"), img, px[:10] * 10 + 30, np.ones(10, bool))
+    for name in ("frame", "merged", "traj", "cam"):
+        (fj,), (ft,) = sorted(tmp_path.glob(f"j_{name}.*")), sorted(tmp_path.glob(f"t_{name}.*"))
+        assert fj.suffix == ft.suffix and ft.read_bytes() == fj.read_bytes(), name

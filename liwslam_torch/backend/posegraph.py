@@ -194,11 +194,18 @@ def _ground_block_jacobians(g: PoseGraph, c: PGConsts):
     return r * m[:, None], J * m[:, None, None]
 
 
-def _gn_normal_products(g, c, free_mask):
-    """Return (rhs (K,6), Hmul: (K,6)->(K,6), diag (K,6), Hb (K,6,6),
-    (r_e, r_g)) of the masked Gauss-Newton normal equations at the current
-    linearization.  ``Hb`` holds the 6x6 node-diagonal blocks of H (the
-    block-Jacobi preconditioner; cross blocks excluded)."""
+def _gn_normal_products(g, c, free_mask, reduce=None, ground_w=1.0):
+    """Return (rhs (K,6), Hmul: (K,6)->(K,6), diag (K,6), Hb (K,6,6), cost)
+    of the masked Gauss-Newton normal equations at the current
+    linearization; ``cost`` is 0.5 |r|^2 there.  ``Hb`` holds the 6x6
+    node-diagonal blocks of H (the block-Jacobi preconditioner; cross
+    blocks excluded).
+
+    ``reduce`` (None on one device) sums a tensor in place over the ranks
+    that hold the graph's other edges: rhs, Hb and the cost go through it
+    as one fused (K,43) tensor, and every ``Hmul`` through one (K,6) call.
+    ``ground_w`` weights the ground rows, which every rank holds whole
+    (1/world on each rank, so their sum counts them once)."""
     K = g.p.shape[0]
     r_e, Ji, Jj = _edge_block_jacobians(g, c)
     r_g, Jg = _ground_block_jacobians(g, c)
@@ -208,23 +215,32 @@ def _gn_normal_products(g, c, free_mask):
     Jg = Jg * fm[:, None, :]
 
     # rhs = -J^T r
-    rhs = -torch.einsum("krd,kr->kd", Jg, r_g)
+    rhs = -ground_w * torch.einsum("krd,kr->kd", Jg, r_g)
     rhs.index_add_(0, g.e_i, -torch.einsum("erd,er->ed", Ji, r_e))
     rhs.index_add_(0, g.e_j, -torch.einsum("erd,er->ed", Jj, r_e))
 
-    Hb = torch.einsum("krd,krc->kdc", Jg, Jg)
+    Hb = ground_w * torch.einsum("krd,krc->kdc", Jg, Jg)
     Hb.index_add_(0, g.e_i, torch.einsum("erd,erc->edc", Ji, Ji))
     Hb.index_add_(0, g.e_j, torch.einsum("erd,erc->edc", Jj, Jj))
+    cost = 0.5 * (torch.sum(r_e * r_e) + ground_w * torch.sum(r_g * r_g))
+    if reduce is not None:
+        # the current point's cost rides in lane [0, 42]
+        payload = torch.cat([rhs, Hb.reshape(K, 36), torch.zeros_like(rhs[:, :1])], 1)
+        payload[0, 42] = cost
+        reduce(payload)
+        rhs, Hb, cost = payload[:, 0:6], payload[:, 6:42].reshape(K, 6, 6), payload[0, 42]
     diag = torch.diagonal(Hb, dim1=1, dim2=2)
 
     def Hmul(x):  # x: (K,6)
         t = torch.einsum("erd,ed->er", Ji, x[g.e_i]) + torch.einsum("erd,ed->er", Jj, x[g.e_j])
-        out = torch.einsum("krd,kr->kd", Jg, torch.einsum("krd,kd->kr", Jg, x))
+        out = ground_w * torch.einsum("krd,kr->kd", Jg, torch.einsum("krd,kd->kr", Jg, x))
         out.index_add_(0, g.e_i, torch.einsum("erd,er->ed", Ji, t))
         out.index_add_(0, g.e_j, torch.einsum("erd,er->ed", Jj, t))
+        if reduce is not None:
+            reduce(out)
         return out
 
-    return rhs, Hmul, diag, Hb, (r_e, r_g)
+    return rhs, Hmul, diag, Hb, cost
 
 
 def _block_jacobi_inv(Hb, lam_k, dscale):
@@ -255,6 +271,8 @@ def _pcg_loop(rhs, Amul, Minv_apply, cg_iters, cg_rtol, stats=None):
             if not bool(rz > thresh):
                 break
         active = rz > thresh
+        if stats is not None:
+            stats["cg_iters"] = stats.get("cg_iters", 0) + 1
         Ap = Amul(p)
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
         x_n = x + alpha * p
@@ -269,14 +287,21 @@ def _pcg_loop(rhs, Amul, Minv_apply, cg_iters, cg_rtol, stats=None):
     return x
 
 
-def solve_pcg(g: PoseGraph, c: PGConsts, gn_iters=15, cg_iters=50, lam=1e-6, stats=None):
+def solve_pcg(g: PoseGraph, c: PGConsts, gn_iters=15, cg_iters=50, lam=1e-6, stats=None, *, reduce=None, ground_w=1.0):
     """Matrix-free damped Gauss-Newton with block-Jacobi-PCG inner solves:
-    CG exit on relative residual, the current point's cost carried across
-    iterations, and exit once an accepted step stops improving or the
-    trust region collapsed (the reference's rules).
+    CG exit on relative residual, the current point's cost computed with
+    the normal products, and exit once an accepted step stops improving
+    or the trust region collapsed (the reference's rules).
 
-    ``stats``, a dict, gets "gn_iters" and "syncs" (host reads of a device
-    value) added to."""
+    ``stats``, a dict, gets "gn_iters", "cg_iters" and "syncs" (host reads
+    of a device value) added to.
+
+    ``reduce`` and ``ground_w`` solve a graph whose edges are split over
+    ranks (``parallel/posegraph_dist``), as in :func:`_gn_normal_products`;
+    the trial cost takes one more (scalar) reduction.  Every branch the
+    host takes then reads a reduced value or one computed from replicated
+    vectors, so every rank takes the same one."""
+    assert gn_iters >= 1  # the first iteration's products give the seed cost
     K = g.p.shape[0]
     fm = g.node_valid[:, None].expand(K, 6).to(g.p.dtype).clone()
     fm[0, :] = 0.0  # first keyframe fixed
@@ -286,12 +311,17 @@ def solve_pcg(g: PoseGraph, c: PGConsts, gn_iters=15, cg_iters=50, lam=1e-6, sta
 
     def cost_of(g2):
         r_e, r_g = graph_residuals(g2, c)
-        return 0.5 * (torch.sum(r_e * r_e) + torch.sum(r_g * r_g))
+        cost = 0.5 * (torch.sum(r_e * r_e) + ground_w * torch.sum(r_g * r_g))
+        if reduce is not None:
+            cost = cost.reshape(1)
+            reduce(cost)
+            cost = cost[0]
+        return cost
 
-    cost = cost_of(g)
     lam_k = torch.full((), lam, dtype=g.p.dtype, device=g.p.device)
     for _ in range(gn_iters):
-        rhs, Hmul, diag, Hb, _ = _gn_normal_products(g, c, fm)
+        # the current point's cost: the last accepted one
+        rhs, Hmul, diag, Hb, cost = _gn_normal_products(g, c, fm, reduce, ground_w)
         dscale = torch.clamp(diag, min=1e-8)
         Minv = _block_jacobi_inv(Hb, lam_k, dscale)
         dx = _pcg_loop(

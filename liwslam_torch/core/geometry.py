@@ -63,6 +63,13 @@ def skew(w):
     )
 
 
+def diag_sq(sigma):
+    """diag(sigma_i^2) (convert::disdiagonal2, common.h:40-47)."""
+    sigma = torch.as_tensor(sigma)
+    n = sigma.shape[-1]
+    return torch.eye(n, dtype=sigma.dtype, device=sigma.device) * (sigma**2)[..., None, :]
+
+
 def exp_so3(w):
     """Rodrigues: so3 vector (...,3) -> rotation matrix (...,3,3)."""
     theta2 = torch.sum(w * w, -1)
@@ -186,6 +193,11 @@ def dis_from_line(p, p1, p2):
     v = p - p2
     perp = v - torch.sum(d * v, -1, keepdim=True) * d
     return safe_norm(perp)
+
+
+def angle_wrap(a):
+    """Wrap angle(s) to [-pi, pi)."""
+    return a - 2.0 * math.pi * torch.floor((a + math.pi) / (2.0 * math.pi))
 
 
 def mat_from_quat(q):

@@ -41,6 +41,19 @@ def ate_rmse(est_T: np.ndarray, gt_T: np.ndarray, align=True) -> float:
     return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
 
 
+def rpe(est_T: np.ndarray, gt_T: np.ndarray, delta: int = 1):
+    """Relative pose error over ``delta`` frames: (trans RMSE m, rot RMSE rad)."""
+    et, er = [], []
+    for i in range(len(est_T) - delta):
+        de = np.linalg.inv(est_T[i]) @ est_T[i + delta]
+        dg = np.linalg.inv(gt_T[i]) @ gt_T[i + delta]
+        err = np.linalg.inv(dg) @ de
+        et.append(np.linalg.norm(err[:3, 3]))
+        c = np.clip((np.trace(err[:3, :3]) - 1) / 2, -1, 1)
+        er.append(np.arccos(c))
+    return float(np.sqrt(np.mean(np.square(et)))), float(np.sqrt(np.mean(np.square(er))))
+
+
 def associate_by_time(t_est, t_gt, max_diff_us=20000):
     """Index pairs (i_est, i_gt) of nearest-time associations."""
     pairs = []

@@ -185,7 +185,7 @@ class Frontend:
             if len(cam_ts_all) == 0:
                 raise ValueError("enable_camera=True but the stream has no camera data")
             sensor_times.append(cam_ts_all * 1e-6)
-        order_s, order_i = dp.merge_numpy(sensor_times, [True] * len(sensor_times), watermark=1, drain=True)
+        order_s, order_i = dp.merge(sensor_times, watermark=1, drain=True)
         imu_keep = np.sort(order_i[order_s == 0])
         wheel_keep = np.sort(order_i[order_s == 1])
         laser_keep = np.sort(order_i[order_s == 2])

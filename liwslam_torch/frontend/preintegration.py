@@ -240,6 +240,87 @@ def imu_interval_parallel(carry: ImuCarry, acc, gyro, t_us, mask, t_end_us, Q) -
     )
 
 
+def _imu_update(carry: ImuCarry, dt, Q) -> ImuCarry:
+    """One Euler propagation step over ``dt`` seconds with the held sample
+    (imu_preintegraption.h:170-208)."""
+    X, dtype, dev = carry.X, carry.X.dtype, carry.X.device
+    gamma, ba, bw = X[6:9], X[9:12], X[12:15]
+    Rz = geo.exp_so3(gamma)
+    a_unb = carry.last_acc - ba
+    w_unb = carry.last_gyro - bw
+    Ra = Rz @ a_unb
+    X_n = torch.cat(
+        [
+            X[0:3] + X[3:6] * dt + 0.5 * Ra * dt * dt,
+            X[3:6] + Ra * dt,
+            geo.log_SO3(Rz @ geo.exp_so3(w_unb * dt)),
+            X[9:15],
+        ]
+    )
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    F = torch.zeros((N_STATE, N_STATE), dtype=dtype, device=dev)
+    F[0:3, 3:6] = eye3
+    F[3:6, 6:9] = -Rz @ geo.skew(a_unb)
+    F[3:6, 9:12] = -Rz
+    F[6:9, 6:9] = -geo.skew(w_unb)  # the reference's (gyro - ba): a typo
+    F[6:9, 12:15] = -eye3
+    F = torch.eye(N_STATE, dtype=dtype, device=dev) + F * dt
+    G = torch.zeros((N_STATE, 12), dtype=dtype, device=dev)
+    G[3:6, 0:3] = -Rz
+    G[6:9, 3:6] = -eye3
+    G[9:12, 6:9] = eye3
+    G[12:15, 9:12] = eye3
+    Gdt = G * dt
+    return carry._replace(X=X_n, J=F @ carry.J, P=F @ carry.P @ F.T + Gdt @ Q @ Gdt.T, Dt=carry.Dt + dt)
+
+
+def _where(cond, new: ImuCarry, old: ImuCarry) -> ImuCarry:
+    return ImuCarry(*[torch.where(cond, a, b) for a, b in zip(new, old)])
+
+
+def imu_add_samples(carry: ImuCarry, acc, gyro, t_us, mask, Q) -> ImuCarry:
+    """Feed a padded batch of time-ordered IMU samples, one Euler step a
+    sample (add_imu_measure): acc / gyro (N,3), t_us (N,) int32, mask (N,)
+    bool; masked entries are skipped.  The first sample ever only primes
+    the held sample."""
+    for a, w, t, m in zip(acc, gyro, t_us, mask):
+        dt = (t - carry.last_t_us).to(carry.X.dtype) * US
+        c = _where(m & carry.has_sample, _imu_update(carry, dt, Q), carry)
+        carry = c._replace(
+            last_acc=torch.where(m, a, c.last_acc),
+            last_gyro=torch.where(m, w, c.last_gyro),
+            last_t_us=torch.where(m, t.to(TIME_DTYPE), c.last_t_us),
+            has_sample=c.has_sample | m,
+        )
+    return carry
+
+
+def imu_update_only_t(carry: ImuCarry, t_us, Q) -> ImuCarry:
+    """Extend the integral to the frame stamp ``t_us`` with the held sample
+    (imu_preintegraption.h:139-146)."""
+    t = time_us(t_us, carry.X.device)
+    dt = (t - carry.last_t_us).to(carry.X.dtype) * US
+    return _where(carry.has_sample, _imu_update(carry, dt, Q)._replace(last_t_us=t), carry)
+
+
+def imu_result_update_bias(res: ImuPreintResult, ba_new, bw_new) -> ImuPreintResult:
+    """First-order bias repair (imu_preint_result::update_value_with_bias,
+    imu_preintegraption.h:68-102)."""
+    dba = ba_new - res.linearized_ba
+    dbw = bw_new - res.linearized_bw
+    J, X = res.J, res.X
+    X = torch.cat(
+        [
+            X[0:3] + J[0:3, 9:12] @ dba + J[0:3, 12:15] @ dbw,
+            X[3:6] + J[3:6, 9:12] @ dba + J[3:6, 12:15] @ dbw,
+            X[6:9] + J[6:9, 12:15] @ dbw,
+            ba_new,
+            bw_new,
+        ]
+    )
+    return res._replace(X=X, linearized_ba=ba_new, linearized_bw=bw_new)
+
+
 # ---------------------------------------------------------------------------
 # Wheel odometry
 

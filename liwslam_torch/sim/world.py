@@ -139,6 +139,49 @@ def square_room(size=8.0, obstacles=True, rich=False) -> np.ndarray:
     return np.asarray(segs, np.float64)
 
 
+def corridor_world(length=30.0, width=3.0) -> np.ndarray:
+    """A long corridor with alcoves: the loop-closure stress case."""
+    w = width / 2
+    segs = [
+        (0, -w, length, -w),
+        (0, w, length, w),
+        (0, -w, 0, w),
+        (length, -w, length, w),
+    ]
+    for x in np.arange(4.0, length - 2, 5.0):
+        segs += [(x, w, x, w + 0.6), (x, w + 0.6, x + 0.8, w + 0.6), (x + 0.8, w + 0.6, x + 0.8, w)]
+    return np.asarray(segs, np.float64)
+
+
+@dataclass
+class MovingBox:
+    """A dynamic obstacle (a person or a cart): an axis-aligned box
+    ping-ponging along ``velocity``, ``period`` seconds each way.  Passed
+    to :func:`simulate` as one of its ``movers``."""
+
+    center: tuple  # (x, y) at t=0
+    size: tuple = (0.5, 0.5)
+    velocity: tuple = (0.4, 0.0)  # m/s
+    period: float = 4.0  # seconds one way before reversing
+
+    def segments_at(self, t: float) -> np.ndarray:
+        phase = t % (2 * self.period)
+        tt = phase if phase < self.period else 2 * self.period - phase
+        cx = self.center[0] + self.velocity[0] * tt
+        cy = self.center[1] + self.velocity[1] * tt
+        hw, hh = self.size[0] / 2, self.size[1] / 2
+        x1, y1, x2, y2 = cx - hw, cy - hh, cx + hw, cy + hh
+        return np.asarray(
+            [
+                (x1, y1, x2, y1),
+                (x2, y1, x2, y2),
+                (x2, y2, x1, y2),
+                (x1, y2, x1, y1),
+            ],
+            np.float64,
+        )
+
+
 def raycast(origin_xy, dirs_xy, segments, max_range=30.0, min_range=0.1):
     """Batch 2D raycast.  origin_xy (2,) or (B,2); dirs_xy (B,2) unit;
     segments (S,4).  Returns ranges (B,), inf where no hit."""

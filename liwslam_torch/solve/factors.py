@@ -238,6 +238,45 @@ def edge_residual(p_i, q_i, p_j, q_j, tf12, info6, weight):
     return weight[..., None] * info6 * torch.cat([rp, rq], -1)
 
 
+def point_residual(p, q, pt1, pt2):
+    """point_factor.h:16-35: 100 (p1 - T p2)."""
+    return 100.0 * (pt1 - geo.tf_apply(geo.make_tf(p, q), pt2))
+
+
+def prior_factor_residual(p_i, q_i, prior_p, prior_q, sqrt_H):
+    """edge_factor.h:27-77 (prior_factor): the state difference
+    [prior_p - p; prior_q - q] weighted by a stored 6x6 square-root
+    information block.  The reference defines it and calls it nowhere (its
+    one call site is commented out, keyframe_manager.cpp:756-772)."""
+    return geo.matvec(sqrt_H, torch.cat([prior_p - p_i, prior_q - q_i], -1))
+
+
+def loop_edge_residual(p_i, q_i, p_j, q_j, w_tf12, T_imu_to_wheel, info6, weight=1.0):
+    """edge_factor.h:128-179 (loop_edge_factor): the planar relative-pose
+    residual in the wheel frame, x, y and yaw rows, rows 3-5 zero.
+    ``w_tf12`` is the measured relative transform already conjugated into
+    the wheel frame.  Row 1 is weighted by ``info6[1]``, the intended
+    1/loop_sigma_p[1] (see :func:`edge_info6`).  Defined and not called,
+    as in the reference."""
+    Tiw = T_imu_to_wheel
+    tf_ij = geo.tf_inv(geo.make_tf(p_i, q_i)) @ geo.make_tf(p_j, q_j)
+    w_tf_ij = geo.tf_inv(Tiw) @ tf_ij @ Tiw
+    p, q = geo.log_SE3(w_tf_ij)
+    op, oq = geo.log_SE3(w_tf12)
+    z = torch.zeros_like(p[..., 0])
+    return torch.stack(
+        [
+            weight * info6[0] * (p[..., 0] - op[..., 0]),
+            weight * info6[1] * (p[..., 1] - op[..., 1]),
+            weight * info6[5] * (q[..., 2] - oq[..., 2]),
+            z,
+            z,
+            z,
+        ],
+        -1,
+    )
+
+
 def edge_info6(params, device="cpu"):
     """Intended diagonal of edge_noise (edge_factor.h:15-25; the reference
     leaves J(1,1)=1 due to the J(1,2) typo; the intended value is used)."""

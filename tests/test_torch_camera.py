@@ -10,6 +10,7 @@ and equal ``ok`` on interior tracks, triangulated points within 1e-4 m,
 reprojection residuals within 1e-5."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -28,6 +29,7 @@ from liwslam_torch.ops import cam_solve, lk
 from liwslam_torch.solve import factors as tfac
 from tests.test_camera import blob_image
 from tests.test_lk_kernel import _shifted, _textured
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 T = lambda a: torch.as_tensor(np.array(a))
 
@@ -199,3 +201,121 @@ def test_camera_residual_matches_reference():
     rt = tfac.camera_residual(T(p), T(q), T(wpt), T(obs), T(Tic), T(si)).numpy()
     scale = np.abs(rj).max(1, keepdims=True) + 1.0
     np.testing.assert_allclose(rt / scale, rj / scale, atol=1e-5)
+
+
+def _feature_windows(drop_from=None):
+    """tests/test_camera_features.py's scene (8 points, a camera sliding
+    along x over W = 6 frames, F = 16 slots), fed frame by frame to both
+    packages' shift + push_frame; the window poses (IMU = camera)."""
+    from tests import test_camera_features as tcf
+
+    pts, poses = tcf._make_scene()
+    n = len(pts)
+    jfw, tfw = jft.empty_window(tcf.F, tcf.W), tft.empty_window(tcf.F, tcf.W)
+    for k in range(tcf.W):
+        ids = np.full(n, -2, np.int32) if k == 0 else np.arange(n, dtype=np.int32)
+        valid = np.ones(n, bool)
+        if drop_from is not None and k >= drop_from:
+            valid[0] = False
+        obs = tcf._observe(pts, poses[k]).astype(np.float32)
+        assert np.array_equal(np.asarray(jft.assigned_ids(jfw, jnp.asarray(ids), jnp.asarray(valid))),
+                              tft.assigned_ids(tfw, T(ids), T(valid)).numpy())
+        jfw = jft.push_frame(jft.shift(jfw), jnp.asarray(ids), jnp.asarray(obs), jnp.asarray(valid))
+        tfw = tft.push_frame(tft.shift(tfw), T(ids), T(obs), T(valid))
+    wp = np.stack([tgeo.log_SE3_np(P)[0] for P in poses]).astype(np.float32)
+    wq = np.stack([tgeo.log_SE3_np(P)[1] for P in poses]).astype(np.float32)
+    return pts, jfw, tfw, wp, wq
+
+
+def _assert_windows_equal(tfw, jfw, atol=0.0):
+    for name in ("ids", "obs_mask", "ready", "next_id"):
+        np.testing.assert_array_equal(getattr(tfw, name).numpy(), np.asarray(getattr(jfw, name)), err_msg=name)
+    for name in ("obs", "world"):
+        np.testing.assert_allclose(getattr(tfw, name).numpy(), np.asarray(getattr(jfw, name)), rtol=0, atol=atol, err_msg=name)
+
+
+def test_feature_window_bookkeeping_matches_reference():
+    """push_frame / assigned_ids / shift (every frame of the scene), and
+    pop_oldest freeing a lost track (landmark 0 seen once): equal."""
+    _, jfw, tfw, _, _ = _feature_windows()
+    _assert_windows_equal(tfw, jfw)
+    _, jfw, tfw, _, _ = _feature_windows(drop_from=1)
+    for _ in range(6):
+        jfw, tfw = jft.pop_oldest(jfw), tft.pop_oldest(tfw)
+        _assert_windows_equal(tfw, jfw)
+    assert int(tfw.ids[0]) == -1 and not tfw.obs_mask.any()
+
+
+def test_reprojection_filter_and_refinement_match_reference():
+    """reproj_error, filter_outliers (one landmark moved 0.5 m), the
+    residual rows (all frames and the latest only) and refine_window
+    (landmark-only refinement of noisy points, tests/test_camera_features.py
+    :116-147) against the reference: errors and rows within 1e-5, refined
+    points within 1e-4 m, and the refinement's 5x gain."""
+    pts, jfw, tfw, wp, wq = _feature_windows()
+    Tic = np.eye(4, dtype=np.float32)
+    jfw = jft.triangulate_ready(jfw, jnp.asarray(wp), jnp.asarray(wq), jnp.asarray(Tic))
+    tfw = tft.triangulate_ready(tfw, T(wp), T(wq), T(Tic))
+    _assert_windows_equal(tfw, jfw, atol=1e-4)
+    tfw = tfw._replace(world=torch.as_tensor(np.asarray(jfw.world)))  # the same points from here on
+    np.testing.assert_allclose(
+        tft.reproj_error(tfw, T(wp), T(wq), T(Tic)).numpy(),
+        np.asarray(jft.reproj_error(jfw, jnp.asarray(wp), jnp.asarray(wq), jnp.asarray(Tic))), rtol=0, atol=1e-5,
+    )
+    moved = np.asarray(jfw.world).copy()
+    moved[2] += [0.5, 0.5, 0.0]
+    jb, tb = jfw._replace(world=jnp.asarray(moved)), tfw._replace(world=T(moved))
+    jf = jft.filter_outliers(jb, jnp.asarray(wp), jnp.asarray(wq), jnp.asarray(Tic), max_err=0.01)
+    tf = tft.filter_outliers(tb, T(wp), T(wq), T(Tic), max_err=0.01)
+    _assert_windows_equal(tf, jf)
+    assert not bool(tf.ready[2]) and bool(tf.ready[3])
+
+    W = wp.shape[0]
+    jwin = jfac.WindowState(p=jnp.asarray(wp), q=jnp.asarray(wq), v=jnp.zeros((W, 3)), bs=jnp.zeros((W, 6)))
+    twin = tfac.WindowState(p=T(wp), q=T(wq), v=torch.zeros(W, 3), bs=torch.zeros(W, 6))
+    sq = np.asarray([100.0, 100.0], np.float32)
+    noisy = moved.copy()
+    noisy[:] = np.asarray(jfw.world) + np.random.default_rng(1).normal(0, 0.05, moved.shape).astype(np.float32) * np.asarray(jfw.ready)[:, None]
+    jn, tn = jfw._replace(world=jnp.asarray(noisy)), tfw._replace(world=T(noisy))
+    for latest in (False, True):
+        np.testing.assert_allclose(
+            tft.camera_residual_rows(tn, twin, T(Tic), T(sq), latest_only=latest).numpy(),
+            np.asarray(jft.camera_residual_rows(jn, jwin, jnp.asarray(Tic), jnp.asarray(sq), latest_only=latest)),
+            rtol=1e-5, atol=1e-4,
+        )
+    jr, _, jcost = jax.jit(lambda fw, win: jft.refine_window(fw, win, jnp.asarray(Tic), jnp.asarray(sq), free_frame_mask=jnp.zeros((W, 15))))(jn, jwin)
+    tr, _, tcost = tft.refine_window(tn, twin, T(Tic), T(sq), free_frame_mask=torch.zeros(W, 15))
+    n = len(pts)
+    np.testing.assert_allclose(tr.world.numpy()[:n], np.asarray(jr.world)[:n], rtol=0, atol=1e-4)
+    before = np.abs(noisy[:n] - pts).max()
+    assert np.abs(tr.world.numpy()[:n] - pts).max() < 0.2 * before
+    assert float(tcost) == pytest.approx(float(jcost), rel=1e-2, abs=1e-6)
+
+
+def test_two_view_helpers_match_reference():
+    """triangulate_two_view (tests/test_camera.py:49-62) and update_scale's
+    epipolar gate with one corrupted match
+    (tests/test_camera_features.py:150-170): depths within 1e-4 relative,
+    the same inliers."""
+    from tests import test_camera_features as tcf
+
+    pts, poses = tcf._make_scene()
+    h = lambda c: np.concatenate([c, np.ones((len(c), 1))], -1).astype(np.float32)
+    h1, h2 = h(tcf._observe(pts, poses[0])), h(tcf._observe(pts, poses[1]))
+    h2[4, :2] += 0.3
+    tf12 = (np.linalg.inv(poses[0]) @ poses[1]).astype(np.float32)
+    valid = np.ones(len(pts), bool)
+    js, jok = jtri.update_scale(jnp.asarray(h1), jnp.asarray(h2), jnp.asarray(valid), jnp.asarray(tf12))
+    ts_, tok = ttri.update_scale(T(h1), T(h2), T(valid), T(tf12))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert not bool(tok[4]) and bool(tok[[0, 1, 2, 3, 5, 6, 7]].all())
+    np.testing.assert_allclose(ts_.numpy(), np.asarray(js), rtol=1e-4, atol=1e-5)
+
+    wp = np.asarray([1.0, 0.5, 4.0])
+    T2 = np.eye(4)
+    T2[:3, 3] = [0.3, 0.0, 0.0]
+    p2 = np.linalg.inv(T2) @ np.append(wp, 1.0)
+    c1, c2 = (wp / wp[2]).astype(np.float32), (p2[:3] / p2[2]).astype(np.float32)
+    s_t = float(ttri.triangulate_two_view(T(c1), T(c2), T(T2.astype(np.float32))))
+    s_j = float(jtri.triangulate_two_view(jnp.asarray(c1), jnp.asarray(c2), jnp.asarray(T2, jnp.float32)))
+    assert s_t == pytest.approx(s_j, rel=1e-5) and s_t == pytest.approx(4.0, rel=1e-4)

@@ -12,6 +12,7 @@ import torch
 
 from liwslam.core import geometry as jgeo
 from liwslam_torch.core import geometry as tgeo
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -107,3 +108,62 @@ def test_quaternion_matrix_and_host_twins_match_reference():
         np.testing.assert_allclose(Tn, jgeo.make_tf_np(p, v), rtol=0, atol=1e-12)
         for a, b in zip(tgeo.log_SE3_np(Tn), jgeo.log_SE3_np(Tn)):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
+
+
+def _helper_case(name, rng):
+    """(reference value, port value) of one of the small helpers on seeded
+    inputs: the factor scenarios of tests/test_solver.py:291-340 and the
+    metric of tests/test_eval_utils.py:78."""
+    from liwslam import config as jconfig
+    from liwslam.eval import metrics as jmetrics
+    from liwslam.solve import factors as jfac
+    from liwslam_torch.eval import metrics as tmetrics
+    from liwslam_torch.solve import factors as tfac
+
+    j32 = lambda a: jnp.asarray(np.asarray(a, np.float32))
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    both = lambda jf, tf, *a: (np.asarray(jf(*map(j32, a))), tf(*map(t32, a)).numpy())
+    p, q = rng.normal(size=3), rng.normal(0, 0.3, 3)
+    if name == "point_residual":
+        return both(jfac.point_residual, tfac.point_residual, p, q, rng.normal(size=(5, 3)), rng.normal(size=(5, 3)))
+    if name == "prior_factor_residual":
+        A = rng.normal(size=(6, 6))
+        d = rng.normal(0, 0.01, 6)
+        return both(jfac.prior_factor_residual, tfac.prior_factor_residual, p + d[:3], q + d[3:], p, q, A @ A.T * 0.1 + np.eye(6))
+    if name == "loop_edge_residual":
+        Tiw = jconfig.office().mat_T_imu_to_wheel()
+        info6 = [10.0, 10.0, 1.0, 1.0, 1.0, 25.0]
+        pj, qj = rng.normal(size=3), rng.normal(0, 0.2, 3)
+        tf_ij = np.linalg.inv(tgeo.make_tf_np(p, q)) @ tgeo.make_tf_np(pj, qj)
+        w_tf12 = np.linalg.inv(Tiw) @ tf_ij @ Tiw @ tgeo.make_tf_np([0.05, -0.02, 0.0], [0.0, 0.0, 0.03])
+        return both(jfac.loop_edge_residual, tfac.loop_edge_residual, p + 0.1, q, pj, qj, w_tf12, Tiw, info6)
+    if name == "diag_sq":
+        return both(jgeo.diag_sq, tgeo.diag_sq, rng.uniform(0.1, 2.0, (4, 3)))
+    if name == "angle_wrap":
+        a = np.concatenate([rng.uniform(-20, 20, 64), [-np.pi, np.pi, 0.0, 3 * np.pi]])
+        return both(jgeo.angle_wrap, tgeo.angle_wrap, a)
+    if name == "rpe":
+        n = 30
+        T = np.stack([tgeo.make_tf_np([0.1 * k, 0.02 * k * k, 0.0], [0.0, 0.0, 0.05 * k]) for k in range(n)])
+        drift = T.copy()
+        drift[:, 0, 3] += np.linspace(0, 0.5, n)
+        drift[:, :3, :3] = drift[:, :3, :3] @ tgeo.make_tf_np(np.zeros(3), [0.0, 0.0, 0.01])[:3, :3]
+        return np.asarray(jmetrics.rpe(drift, T, 2)), np.asarray(tmetrics.rpe(drift, T, 2))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize(
+    "name", ["point_residual", "prior_factor_residual", "loop_edge_residual", "diag_sq", "angle_wrap", "rpe"]
+)
+def test_small_helpers_match_reference(name):
+    """The factors, geometry helpers and RPE the reference's tests call,
+    through both packages on the same inputs: within 1e-5 (float32
+    round-off of the same closed forms; rpe is float64 numpy, equal)."""
+    j, t = _helper_case(name, np.random.default_rng(7))
+    assert j.shape == t.shape
+    if name == "rpe":
+        np.testing.assert_array_equal(t, j)
+    else:
+        np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5 * max(1.0, np.abs(j).max()))
+    if name == "loop_edge_residual":
+        assert np.all(t[3:] == 0.0) and np.abs(t[:3]).max() > 1e-3

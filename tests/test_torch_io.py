@@ -11,10 +11,12 @@ topic is read into the streams.  The readers and renderers themselves are
 held to the reference's in tests/test_torch_isolation.py."""
 
 import numpy as np
+import pytest
 
 from liwslam_torch import config, run
 from liwslam_torch.io import openloris, tum
 from liwslam_torch.sim import world as sim
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(
     max_points=384, max_lines=48, max_corners=16, ref_capacity=384, max_imu_per_frame=32,
@@ -48,3 +50,43 @@ def test_cli_runs_a_bag_with_debug_renderings(tmp_path):
         assert any((out / (name + ext)).is_file() for ext in (".png", ".ppm")), name
     t_s, _ = tum.read_tum(str(out / "fornt_end.txt"))
     assert len(t_s) == report["frames"] and np.all(np.diff(t_s) > 0)
+
+
+def _merge_cases():
+    """tests/test_io.py's cases: three jittered streams (watermark 40), a
+    stream with a non-monotonic stamp (watermark 2) and one that runs dry
+    without drain (watermark 5); and the merge pack_frames asks for."""
+    from tests.test_io import rand_streams
+
+    a = np.asarray([0.0, 1.0, 0.5, 2.0, 3.0] + list(np.arange(4.0, 50.0)))
+    return [
+        (rand_streams(np.random.default_rng(0)), 40, True),
+        ([a, np.arange(0.05, 50.0, 0.5)], 2, True),
+        ([np.arange(0.0, 10.0), np.arange(0.5, 100.5)], 5, False),
+        (rand_streams(np.random.default_rng(1), rates=(200.0, 20.0, 10.0, 30.0)), 1, True),
+    ]
+
+
+def test_native_merge_matches_python_and_the_reference(tmp_path, monkeypatch):
+    """The port's native merge (its own copy of dispatch.cpp, built at
+    first use) against its Python oracle and the reference's merge, on
+    tests/test_io.py's cases: equal orders.  The build is keyed by the
+    source, and a failed build raises."""
+    from liwslam.io import dispatch as jdp
+    from liwslam_torch.io import dispatch as dp
+
+    for times, wm, drain in _merge_cases():
+        s, i = dp.merge(times, watermark=wm, drain=drain)
+        for so, io_ in (dp.merge_numpy(times, [True] * len(times), wm, drain), jdp.merge(times, watermark=wm, drain=drain)):
+            np.testing.assert_array_equal(s, so)
+            np.testing.assert_array_equal(i, io_)
+        t = np.asarray([times[a][b] for a, b in zip(s, i)])
+        assert (np.diff(t) > 0).all()
+    assert dp._lib_path().startswith(dp.BUILD_DIR)
+    bad = tmp_path / "dispatch.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(dp, "SOURCE", str(bad))
+    monkeypatch.setattr(dp, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(dp, "_lib", None)
+    with pytest.raises(RuntimeError, match="native dispatcher"):
+        dp.merge([np.arange(3.0)])

@@ -1,9 +1,9 @@
 """The port stands alone: it imports neither JAX nor the reference package,
 its entry points refuse to fall back to the CPU, its kernel build refuses
 to fall back when the CUDA compiler is missing, and its own copies of the
-reference's numpy-only modules (config presets, the simulator, the
-metrics, TUM files, the occupancy grid, the stage record, the async
-writer) give what the reference's give."""
+reference's numpy-only modules (config presets, the simulator and its
+moving obstacles, the metrics, TUM files, the occupancy grid, the stage
+record, the async writer) give what the reference's give."""
 
 import ast
 import dataclasses
@@ -21,6 +21,7 @@ from liwslam.sim import world as jsim
 from liwslam_torch import config as tconfig
 from liwslam_torch.eval import metrics as tmetrics
 from liwslam_torch.sim import world as tsim
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (
@@ -135,6 +136,13 @@ def test_simulator_and_metrics_match_reference():
         assert tmetrics.ate_rmse(est, t.gt_T_w_imu[pairs[:, 1]], align=align) == pytest.approx(
             jmetrics.ate_rmse(est, j.gt_T_w_imu[pairs[:, 1]], align=align), rel=1e-9
         )
+    # the moving obstacles (segments at 20 instants) and the corridor
+    kw = dict(center=(0.5, -2.0), size=(0.6, 0.4), velocity=(0.35, 0.35), period=4.0)
+    jb, tb = jsim.MovingBox(**kw), tsim.MovingBox(**kw)
+    for tt in np.linspace(0.0, 17.0, 20):
+        np.testing.assert_array_equal(tb.segments_at(tt), jb.segments_at(tt))
+    np.testing.assert_array_equal(tsim.corridor_world(), jsim.corridor_world())
+    np.testing.assert_array_equal(tsim.corridor_world(20.0, 2.5), jsim.corridor_world(20.0, 2.5))
 
 
 def test_build_is_keyed_by_source_hash(monkeypatch, tmp_path):
@@ -198,6 +206,35 @@ def test_back_end_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch, t
     # anything is read)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--sequence", str(tmp_path / "seq.bag"), "--debug-viz", "--out", str(tmp_path)])
+
+
+def test_dist_runner_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """``python -m liwslam_torch.parallel.dist_runner`` runs on the card by
+    default and raises without CUDA before it spawns a rank."""
+    from liwslam_torch.parallel import dist_runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dist_runner, "_worker", lambda *a: pytest.fail("a rank was spawned"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dist_runner.main(["--mode", "solve", "--num-processes", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dist_runner.launch(dist_runner.RunConfig(mode="pipeline", backend="gloo"))
+    assert dist_runner.RunConfig().device == "cuda"
+
+
+def test_dist_runner_refuses_more_nccl_ranks_than_devices(monkeypatch):
+    """NCCL takes one CUDA device a rank: the runner's defaults (2 ranks,
+    cuda, nccl) on a one-card machine, and NCCL on the CPU, raise a clear
+    error before a rank is spawned."""
+    from liwslam_torch.parallel import dist_runner
+
+    monkeypatch.setattr(dist_runner, "_worker", lambda *a: pytest.fail("a rank was spawned"))
+    with pytest.raises(ValueError, match="NCCL takes one CUDA device a rank: 2 ranks, 0 devices"):
+        dist_runner.launch(dist_runner.RunConfig(mode="solve", device="cpu", backend="nccl"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 ranks, 1 devices"):
+        dist_runner.main([])
 
 
 def test_batched_step_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):

@@ -16,6 +16,7 @@ from liwslam.frontend import preintegration as jpre
 from liwslam.ops import preint_parallel as jpp
 from liwslam_torch import config as tcfg
 from liwslam_torch.frontend import preintegration as tpre
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-4
 
@@ -111,3 +112,51 @@ def test_wheel_interval_matches_reference(n_valid):
     jn, tn = jpre.wheel_reset(jc), tpre.wheel_reset(tc)
     _close(tn.delta_T, jn.delta_T, 0.0)
     _close(tn.last_pose, jn.last_pose, 1e-6)
+
+
+@pytest.mark.parametrize("n_valid,primed", [(32, True), (19, True), (8, False)])
+def test_sequential_imu_matches_reference_and_the_parallel_form(n_valid, primed):
+    """imu_add_samples + imu_update_only_t against the reference's
+    sequential pair (to 1e-4 relative: the same Euler steps) and against
+    the port's own imu_interval_parallel over the whole interval, with
+    tests/test_preint_parallel.py's bounds; imu_result_update_bias against
+    the reference's."""
+    rng = np.random.default_rng(100 + n_valid)
+    acc, gyro, t = _samples(rng, 32)
+    mask = np.arange(32) < n_valid
+    t_end = int(t[max(n_valid - 1, 0)]) + 4000
+    ba = np.asarray([0.05, -0.02, 0.01], np.float32)
+    bw = np.asarray([0.002, 0.0, -0.001], np.float32)
+    jc = jpre.imu_reset(0, jnp.asarray(ba), jnp.asarray(bw))
+    tc = tpre.imu_reset(0, torch.as_tensor(ba), torch.as_tensor(bw))
+    if primed:
+        held = (np.asarray([0.1, 0.2, 9.8], np.float32), np.asarray([0.0, 0.01, 0.1], np.float32))
+        jc = jc._replace(last_acc=jnp.asarray(held[0]), last_gyro=jnp.asarray(held[1]), has_sample=jnp.asarray(True))
+        tc = tc._replace(
+            last_acc=torch.as_tensor(held[0]), last_gyro=torch.as_tensor(held[1]),
+            has_sample=torch.ones((), dtype=torch.bool),
+        )
+    jQ, tQ = jpre.imu_noise_Q(jcfg.base()), tpre.imu_noise_Q(tcfg.base())
+    jo = jpre.imu_update_only_t(jpre.imu_add_samples(jc, jnp.asarray(acc), jnp.asarray(gyro), jnp.asarray(t), jnp.asarray(mask), jQ), t_end, jQ)
+    targs = (torch.as_tensor(acc), torch.as_tensor(gyro), torch.as_tensor(t), torch.as_tensor(mask))
+    to = tpre.imu_update_only_t(tpre.imu_add_samples(tc, *targs, tQ), t_end, tQ)
+    _close(to.X, jo.X, 1e-6)
+    _close(to.J, jo.J, 1e-6)
+    _close(to.P, jo.P, 1e-9)
+    assert float(to.Dt) == pytest.approx(float(jo.Dt), rel=1e-6)
+    assert int(to.last_t_us) == int(jo.last_t_us) and bool(to.has_sample) == bool(jo.has_sample)
+    np.testing.assert_array_equal(to.last_acc.numpy(), np.asarray(jo.last_acc))
+
+    par = tpre.imu_interval_parallel(tc, *targs, torch.tensor(t_end, dtype=torch.int32), tQ)
+    np.testing.assert_allclose(par.X.numpy(), to.X.numpy(), atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(par.J.numpy(), to.J.numpy(), atol=2e-4, rtol=1e-2)
+    np.testing.assert_allclose(par.P.numpy(), to.P.numpy(), atol=1e-5, rtol=5e-2)
+    assert float(par.Dt) == pytest.approx(float(to.Dt), abs=1e-6) and int(par.last_t_us) == int(to.last_t_us)
+    np.testing.assert_array_equal(par.last_acc.numpy(), to.last_acc.numpy())
+
+    dba = np.asarray([0.01, -0.02, 0.005], np.float32)
+    dbw = np.asarray([-0.003, 0.001, 0.002], np.float32)
+    jr = jpre.imu_result_update_bias(jpre.imu_result(jo), jnp.asarray(ba + dba), jnp.asarray(bw + dbw))
+    tr = tpre.imu_result_update_bias(tpre.imu_result(to), torch.as_tensor(ba + dba), torch.as_tensor(bw + dbw))
+    _close(tr.X, jr.X, 1e-6)
+    np.testing.assert_array_equal(tr.linearized_ba.numpy(), np.asarray(jr.linearized_ba))

@@ -6,7 +6,13 @@ Problems come from tests/test_solver.py and tests/test_track_solve.py
 matches) and are carried across as numpy.  Bounds follow
 tests/test_track_solve.py: residuals atol 3e-4; tracking solve poses atol
 5e-4, whole state atol 2e-3, cost <= 1.02x the reference's, Schur
-quadratic forms within 10%."""
+quadratic forms within 10%.
+
+At one line match (M = 1) the Schur reduction cancels frame 0's prior
+against the IMU's information, and a float32 linearization loses part of
+the reduced form in both packages: the M = 1 test holds the port's plain
+version to the reference's kernel (interpret mode), each against a float64
+reduction at its own solution."""
 
 import functools
 
@@ -24,6 +30,7 @@ from liwslam_torch.solve import factors as tfac
 from liwslam_torch.solve import gn as tgn
 from tests.test_solver import CONSTS
 from tests.test_track_solve import reference_solution, tracking_problem
+from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,3 +215,70 @@ def test_edge_residual_and_info_match_reference():
     np.testing.assert_allclose(rt, rj, rtol=0, atol=1e-4 * np.abs(rj).max())
     assert np.abs(rj).max() > 1.0
 
+
+
+M1_SEEDS = range(3, 11)
+
+
+@functools.lru_cache(maxsize=None)
+def _m1_case(seed):
+    """chip_smoke's two-frame problem at one line match (bench.py's
+    parameters, the tracking mode they choose) on the CPU: the port's
+    packed inputs, and the same system for the reference as numpy."""
+    import chip_smoke
+
+    prm = chip_smoke.bench_params()
+    x0, data, consts, _ = chip_smoke.two_frame_problem(prm, "cpu", M=1, seed=seed)
+    free, frozen = tts.tracking_free_mask(prm.fast_mode)
+    inp = tts.pack_inputs(x0, torch.as_tensor(free), data, consts)
+    return prm, inp, x0.numpy(), [np.array(v) for v in data], np.asarray(free, np.float32), frozen
+
+
+@jax.jit
+def _lin64(y, d, c):
+    f = lambda y: jfac.stack_residuals(jfac.WindowState.from_flat(y, 2), d, c)
+    return f(y), jax.jacfwd(f)(y)
+
+
+def _schur64_reference(data, x, jc):
+    """(dH, dg) of the reference's residual linearized at x in float64
+    (JAX with 64-bit types), reduced in float64."""
+    with jax.enable_x64(True):
+        d64 = jfac.FactorData(*[jnp.asarray(v, jnp.float64 if v.dtype == np.float32 else v.dtype) for v in data])
+        c64 = jfac.SolveConsts(*[jnp.asarray(np.asarray(v), jnp.float64) for v in jc])
+        r, J = (np.asarray(a) for a in _lin64(jnp.asarray(np.asarray(x, np.float64)), d64, c64))
+    H, g = J.T @ J, -(J.T @ r)
+    sol = np.linalg.solve(H[:15, :15] + 1e-8 * np.eye(15), np.concatenate([H[:15, 15:], g[:15, None]], 1))
+    dH = H[15:, 15:] - H[15:, :15] @ sol[:, :15]
+    return 0.5 * (dH + dH.T), g[15:] - H[15:, :15] @ sol[:, 15]
+
+
+@pytest.mark.parametrize("seed", M1_SEEDS)
+def test_m1_schur_loss_is_shared_with_the_reference(seed):
+    """B1's Schur reduction at M = 1 over chip_smoke's eight seeds: the
+    port's plain version (``lm_solve_track_plain``) lies from a float64
+    reduction at its own solution (``chip_smoke.schur_float64``) at most
+    max(2x the reference kernel's gap from its own float64 reduction, 10%)
+    (``chip_smoke.schur_gap``; ``pytest -s`` prints both).  Measured on
+    an x86 CPU: the port 0.8-50.1%, the reference 1.5-144.9% (seeds 6 and
+    9 the worst in both), so the loss is float32's, shared by both
+    packages, and not a fault of the port."""
+    import chip_smoke
+    from liwslam import config as jconfig
+    from liwslam.ops import track_solve as jts
+
+    prm, inp, x0, data, free, frozen = _m1_case(seed)
+    mi = prm.solver_max_iterations
+    x, _, dH, _, _ = tts.lm_solve_track_plain(inp, max_iters=mi)
+    dH64 = chip_smoke.schur_float64(inp, x)[0][0].numpy()
+    port_gap = chip_smoke.schur_gap(dH[0].double().numpy(), dH64)
+
+    jc = jfac.make_consts(jconfig.office().replace(**chip_smoke.BENCH_OVERRIDES))
+    jd = jfac.FactorData(*[jnp.asarray(v) for v in data])
+    xr, _, dHr, _ = jts.lm_solve_track(
+        jnp.asarray(x0), jnp.asarray(free), jd, jc, max_iters=mi, interpret=True, frozen_dims=frozen
+    )
+    ref_gap = chip_smoke.schur_gap(np.asarray(dHr, np.float64), _schur64_reference(data, np.asarray(xr), jc)[0])
+    print(f"M=1 seed {seed}: Schur form from the float64 reduction, port {100 * port_gap:.1f}%, reference {100 * ref_gap:.1f}%")
+    assert np.all(np.isfinite(np.asarray(xr))) and np.all(np.isfinite(x.numpy()))
+    assert port_gap <= max(2 * ref_gap, 0.10), (seed, port_gap, ref_gap)

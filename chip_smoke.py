@@ -27,8 +27,9 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    version in the loop on the card, in float32 and in float64
    (:func:`check_b2_along_path`);
 4a. B sequences in one batched step (``parallel/multiseq``,
-   :func:`run_multiseq`): the bench track with seeds 1..32, each
-   sequence's init window timed, then at B = 1, 2, 4, 8, 16, 32 a warm-up
+   :func:`run_multiseq`): the bench track with seeds 1..32, simulated and
+   initialized in 8 worker processes on the card, each sequence's init
+   window timed, then at B = 1, 2, 4, 8, 16, 32 a warm-up
    chunk and a timed chunk of 32 frames and a profiled chunk of 2:
    frames/s in all and a sequence, device busy and idle share, launches a
    step with B1's and B2's (each exactly once a step, counts set to 0
@@ -57,6 +58,12 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    unsharded solve and in float32 timed beside it at K = 1024 and 10240
    (:func:`check_pcg_dist`); the two-robot pipeline, 2 ranks over gloo on
    the card at bench.py's widths and rates (:func:`run_two_robots`);
+   the composed flow (``dist_runner``'s ``composed`` mode, the port's
+   ``dryrun_multichip``): B = 8 W sequences split over W = ``device_count``
+   NCCL ranks and, on one card, B = 4 over 2 gloo ranks, one 32-frame
+   chunk, the gathered poses against one process's batched run, the
+   K = 1024 graph they seed solved edge-sharded; with a second card B1 and
+   B2 launched on cuda:1 from a thread on cuda:0 (:func:`run_multicard`);
 4d. the moving-obstacle scene: ``Frontend.run`` at bench.py's widths on
    the L track among three moving boxes (:func:`run_dynamic`);
 5. camera path: the same ``Frontend.run`` with ``enable_camera`` on the
@@ -83,7 +90,8 @@ Phases, one line each (any failed check raises and the exit code is not 0):
    ms of one launch on 32 systems or scans captured there (``ms_b32``)
    and of its slowest system alone (``ms_b1_slowest``), and the same
    launch and each of its systems alone queued back to back
-   (:func:`batch_against_one`).
+   (:func:`batch_against_one`); B1's and B2's launches in the composed
+   flow's chunk over all ranks (``launches_multicard``).
 
 The last line is ``{"ok": true, "device": {...}}``.  No CPU fallback: the
 script exits non-zero when CUDA is not available.
@@ -93,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -120,23 +129,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-# bench.py's single-stream capacities over the office preset
-BENCH_OVERRIDES = dict(
-    max_points=1152,
-    max_lines=64,
-    max_corners=16,
-    ref_capacity=1024,
-    max_imu_per_frame=32,
-    max_wheel_per_frame=8,
-    solver_max_iterations=8,
-    init_solver_max_iterations=25,
-)
-
-
 def bench_params():
+    """bench.py's single-stream capacities over the office preset
+    (``config.BENCH_WIDTHS``)."""
     from liwslam_torch import config
 
-    return config.office().replace(**BENCH_OVERRIDES)
+    return config.bench_params()
 
 
 # bench.py's camera arm (bench.py:108-131) at the office preset's own image
@@ -181,22 +179,12 @@ def bench_streams(prm, camera=False, seed=1):
     seed 1 + b); with ``camera`` also 848x480 images at 30 Hz (``prm``
     then carries the camera's intrinsics and extrinsic).  The camera draws
     its noise last, so the laser, IMU and wheel streams are the same
-    either way."""
-    from liwslam_torch.sim import world as sim
+    either way (``dist_runner.composed_streams``, which the composed flow's
+    ranks simulate)."""
+    from liwslam_torch.parallel import dist_runner as dr
 
     cam = dict(camera_hz=CAM_HZ, camera_wh=CAM_WH) if camera else {}
-    return sim.simulate(
-        sim.default_track("loop"),
-        sim.square_room(size=12.0, obstacles=True, rich=True),
-        prm,
-        imu_hz=200,
-        wheel_hz=20,
-        laser_hz=10,
-        n_beams=1080,
-        noise=True,
-        seed=seed,
-        **cam,
-    )
+    return dr.composed_streams(seed, prm, "bench", **cam)
 
 
 def time_ms(fn, n=60, warm=5):
@@ -1029,9 +1017,21 @@ MULTISEQ_TIMED = 1  # timed chunks at each B, after the warm-up chunk
 MULTISEQ_PROFILED = 2  # frames of the profiled chunk (the profiler's events cost host seconds)
 
 
-def _simulate_seed(seed):
-    """The bench track with noise seed ``seed`` (a worker process's task)."""
-    return bench_streams(bench_params(), seed=seed)
+def _simulate_and_init(seed):
+    """The bench track with noise seed ``seed``, packed and its init window
+    solved on the card (a worker process's task, one torch thread): its
+    streams, its one-sequence ``Sequences`` with the state on the host, and
+    the init's seconds (a worker's first pays the process's warm-up)."""
+    from torch.utils._pytree import tree_map
+
+    from liwslam_torch.frontend.driver import Frontend
+
+    torch.set_num_threads(1)
+    streams = bench_streams(bench_params(), seed=seed)
+    t0 = time.perf_counter()
+    seqs = Frontend(bench_params(), device="cuda").init_sequences([streams])
+    torch.cuda.synchronize()
+    return streams, seqs._replace(states=tree_map(lambda t: t.cpu(), seqs.states)), time.perf_counter() - t0
 
 
 def _busy_s(events):
@@ -1057,8 +1057,9 @@ def _busy_s(events):
 def run_multiseq(prm, dev):
     """B sequences in one batched step (``parallel/multiseq``) at full
     width: sequence b is the bench track simulated with seed 1 + b
-    (simulated once in worker processes, initialized once, reused for
-    every B).  Each sequence's own init window is a host solve, timed.
+    (simulated and initialized once in worker processes on the card,
+    reused for every B).  Each sequence's own init window is a host solve,
+    timed.
     At each B: one warm-up chunk of 32 frames, ``MULTISEQ_TIMED`` timed
     chunks (host clock, each ending with its outputs on the host), a
     profiled chunk of ``MULTISEQ_PROFILED`` frames (device busy, kernel
@@ -1067,7 +1068,7 @@ def run_multiseq(prm, dev):
     poses are held against its own single-stream run on the card over the
     warm-up chunk's 32 frames, and at B = 32 every sequence runs its whole
     common prefix for its ATE.  Returns B1's and B2's launches a step at
-    B = 32 and their inputs of one launch there."""
+    B = 32, their inputs of one launch there, and the simulated streams."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1076,28 +1077,40 @@ def run_multiseq(prm, dev):
     from liwslam_torch.core import geometry as geo
     from liwslam_torch.eval import metrics
     from liwslam_torch.frontend import pipeline as pl
-    from liwslam_torch.frontend.driver import Frontend
+    from liwslam_torch.frontend.driver import Frontend, concat_sequences
     from liwslam_torch.ops import extract as ext
     from liwslam_torch.ops import track_solve as ts
     from liwslam_torch.parallel import multiseq
 
     t_phase = time.perf_counter()
     Bmax, C = max(MULTISEQ_B), MULTISEQ_CHUNK
+    # each sequence simulated and its init window (a host-orchestrated solve
+    # of its own) solved in one of 8 worker processes on the card, one
+    # thread each (OpenMP too: 8 processes share the host's cores); their
+    # one-sequence Sequences put side by side as Frontend.init_sequences does
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(8, mp_context=mp.get_context("spawn")) as pool:
-        streams = list(pool.map(_simulate_seed, [1 + b for b in range(Bmax)]))
-    sim_s = time.perf_counter() - t0
+    omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        with ProcessPoolExecutor(8, mp_context=mp.get_context("spawn")) as pool:
+            done = list(pool.map(_simulate_and_init, [1 + b for b in range(Bmax)]))
+    finally:
+        if omp is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = omp
+    prep_s = time.perf_counter() - t0
+    streams = [d[0] for d in done]
+    init_s = np.array([d[2] for d in done])
     fe = Frontend(prm, device=dev)
-    t0 = time.perf_counter()
-    seqs = fe.init_sequences(streams)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    seqs = concat_sequences([d[1] for d in done], dev)
     n = seqs.n_common
     T = MULTISEQ_TIMED
     check(n >= (T + 1) * C + MULTISEQ_PROFILED, f"multiseq: {n} common tracked frames < {(T + 1) * C + MULTISEQ_PROFILED}")
     print(
-        f"multiseq: {Bmax} sequences (seeds 1..{Bmax}) simulated in {sim_s:.1f}s; their init windows (one host "
-        f"solve each) {init_s:.1f}s, {1e3 * init_s / Bmax:.0f} ms a sequence; sequences run their common prefix of "
+        f"multiseq: {Bmax} sequences (seeds 1..{Bmax}) simulated and initialized in 8 worker processes on the card in "
+        f"{prep_s:.1f}s; an init window (one host solve each, 8 at a time) median {1e3 * np.median(init_s):.0f} ms, "
+        f"max {1e3 * init_s.max():.0f} (a worker's first pays its warm-up); sequences run their common prefix of "
         f"{n} tracked frames (frames per sequence after the gate {sorted({len(f) for f in seqs.frames})}, first "
         f"tracked frame {sorted(set(seqs.first))}), each from its own first tracked frame",
         flush=True,
@@ -1197,7 +1210,7 @@ def run_multiseq(prm, dev):
     )
     print("multiseq ATE by seed: " + json.dumps([round(float(a), 6) for a in ates]), flush=True)
     check(np.all(np.isfinite(p)) and ates.max() < 0.02, f"multiseq: ATE {ates.max()} m >= 0.02 m")
-    return rows, captured
+    return rows, captured, streams
 
 
 # ---------------------------------------------------------- back end ----
@@ -1417,6 +1430,16 @@ def _pcg_edges(T, K):
     return ei, ej, ew, a, b
 
 
+def _yaw_tf(p, yaw):
+    """Transforms (K,4,4): translations ``p`` (K,3), rotations by ``yaw``
+    (K,) about z."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    T = np.tile(np.eye(4), (len(yaw), 1, 1))
+    T[:, 0, 0], T[:, 0, 1], T[:, 1, 0], T[:, 1, 1] = c, -s, s, c
+    T[:, :3, 3] = p
+    return T
+
+
 def _padded_graph(T0, ei, ej, etf, ew, dev, perm_seed=None):
     """A PoseGraph of the poses T0 (K,4,4) and the edges, in 4K edge slots;
     ``perm_seed`` shuffles the edges' order (the order of the solve's sums)."""
@@ -1431,8 +1454,7 @@ def _padded_graph(T0, ei, ej, etf, ew, dev, perm_seed=None):
     ei, ej = np.pad(ei, (0, pad)), np.pad(ej, (0, pad))
     etf = np.concatenate([etf, np.tile(np.eye(4), (pad, 1, 1))])
     ew = np.pad(ew, (0, pad))
-    p0 = np.stack([geo.log_SE3_np(Tk)[0] for Tk in T0])
-    q0 = np.stack([geo.log_SE3_np(Tk)[1] for Tk in T0])
+    p0, q0 = (t.numpy() for t in geo.log_SE3(torch.as_tensor(np.asarray(T0, np.float64))))
     return pg.graph_from_numpy(p0, q0, K, ei, ej, etf, ew, n_e, dev)
 
 
@@ -1453,8 +1475,6 @@ def pcg_graph(res, K, dev, perm_seed=None):
     loop edges from the true poses.  The solve the manager calls (20
     Gauss-Newton, 60 CG iterations) does not settle on it: the timing
     graph."""
-    from liwslam_torch.core import geometry as geo
-
     n_fe = min(len(res.p), K)
     p = np.zeros((K, 3), np.float32)
     q = np.zeros((K, 3), np.float32)
@@ -1467,7 +1487,7 @@ def pcg_graph(res, K, dev, perm_seed=None):
     yaw = np.cumsum(walk.normal(0, 2e-4, K))
     dxy = np.cumsum(walk.normal(0, 2e-3, (K, 2)), 0)
     yaw[0], dxy[0] = 0.0, 0.0  # the first node is fixed
-    T_odo = np.stack([geo.make_tf_np(np.zeros(3), [0.0, 0.0, yaw[k]]) @ T[k] for k in range(K)])
+    T_odo = _yaw_tf(np.zeros((K, 3)), yaw) @ T
     T_odo[:, :2, 3] += dxy
     ei, ej, ew, a, b = _pcg_edges(T, K)
     etf = np.concatenate([np.linalg.inv(T_odo[:-1]) @ T_odo[1:], np.linalg.inv(T[a]) @ T[b]])
@@ -1483,20 +1503,18 @@ def settled_graph(prm, res, K, dev, perm_seed=None):
     and each initial pose moved from them in its own frame by a seeded
     2 cm in x and y and 2 mrad of yaw.  Its correction is the
     perturbation, ~7 cm and ~7 mrad at the largest."""
-    from liwslam_torch.core import geometry as geo
-
     T_iw = prm.mat_T_imu_to_wheel().astype(np.float64)
     idx = np.arange(K) % len(res.p)
     W = _poses(res.p[idx], res.q[idx]) @ T_iw
     yaw = np.arctan2(W[:, 1, 0], W[:, 0, 0])
-    T = np.stack([geo.make_tf_np([w[0, 3], w[1, 3], 0.0], [0.0, 0.0, y]) for w, y in zip(W, yaw)]) @ np.linalg.inv(T_iw)
+    T = _yaw_tf(np.stack([W[:, 0, 3], W[:, 1, 3], 0 * yaw], -1), yaw) @ np.linalg.inv(T_iw)
     ei, ej, ew, a, b = _pcg_edges(T, K)
     etf = np.concatenate([np.linalg.inv(T[:-1]) @ T[1:], np.linalg.inv(T[a]) @ T[b]])
     noise = np.random.default_rng(1)
     dp = noise.normal(0, 0.02, (K, 3)) * [1.0, 1.0, 0.0]
     dyaw = noise.normal(0, 2e-3, K)
     dp[0], dyaw[0] = 0.0, 0.0  # the first node is fixed
-    T0 = np.stack([T[k] @ geo.make_tf_np(dp[k], [0.0, 0.0, dyaw[k]]) for k in range(K)])
+    T0 = T @ _yaw_tf(dp, dyaw)
     return _padded_graph(T0, ei, ej, etf, ew, dev, perm_seed)
 
 
@@ -1700,6 +1718,7 @@ def run_cli_bag(streams):
     import dataclasses
     import os
 
+    from liwslam_torch import config
     from liwslam_torch.io import openloris, tum
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1715,7 +1734,7 @@ def run_cli_bag(streams):
         sys.executable, "-m", "liwslam_torch.run", "--sequence", bag, "--gt", gt, "--debug-viz",
         "--chunk", "64", "--out", os.path.join(out, "run"),
     ]
-    for k, v in BENCH_OVERRIDES.items():
+    for k, v in config.BENCH_WIDTHS.items():
         cmd += ["--param", f"{k}={v}"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
@@ -1877,6 +1896,119 @@ def run_two_robots(dev):
     check(v["ranks_equal"], "two-robot pipeline: the ranks' poses differ")
     check(not v["reference_modules_loaded"], f"two-robot pipeline: a rank loaded {v['reference_modules_loaded']}")
     check(v["ok"], f"two-robot pipeline verdict: {v}")
+
+
+MULTICARD_FRAMES = 32  # the composed flow's chunk
+
+
+def run_multicard(streams, dev):
+    """``parallel/dist_runner``'s composed mode at bench.py's widths (the
+    counterpart of ``__graft_entry__.dryrun_multichip``): B = 8 W sequences
+    of the bench track (seeds 1.., simulated by :func:`run_multiseq` and
+    handed to the ranks as files) split over W = ``device_count`` NCCL
+    ranks, a card each; with one card also B = 4 over W = 2 gloo ranks on
+    it, so the split and the gather cross a process boundary.  Each rank
+    initializes its sequences and steps them one chunk of
+    ``MULTICARD_FRAMES`` frames (B1's and B2's counts set to 0 before the
+    chunk and read after, in the rank); the gathered poses seed a K = 1024
+    / E = 4096 graph (``dist_runner.composed_graph``) that the ranks solve
+    edge-sharded.  Gates: the gathered poses equal one process's batched
+    run of all B bit for bit and are finite; the sharded float64 solve
+    within 1e-9 m and 1e-9 rad of the unsharded one (as
+    :func:`check_pcg_dist`); the sharded float32 solve (20 / 60) within
+    2e-3 m and 1e-4 rad of the float64 optimum; the ranks' poses bit-equal;
+    B1 and B2 once a step on every rank; nothing of the reference loaded.
+    With a second card, B1 and B2 are also launched on cuda:1 from this
+    thread (:func:`check_other_card`).  Returns {run: B1 / B2 launches in
+    the chunk over all ranks}."""
+    import tempfile
+
+    from liwslam_torch.parallel import dist_runner as dr
+
+    n_cards = torch.cuda.device_count()
+    runs = [("nccl", n_cards, 8 * n_cards)] + ([("gloo", 2, 4)] if n_cards == 1 else [])
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for b in range(max(B for _, _, B in runs)):
+            dr.save_streams(tmp, 1 + b, streams[b])
+        save_s = time.perf_counter() - t0
+        for backend, W, B in runs:
+            t0 = time.perf_counter()
+            v = dr.launch(dr.RunConfig(mode="composed", num_processes=W, device="cuda", backend=backend, widths="bench",
+                                       sequences=B, frames=MULTICARD_FRAMES, streams=tmp))
+            wall = time.perf_counter() - t0
+            ranks = v["ranks"]
+            tag = f"composed ({backend}, W={W}, B={B})"
+            print(
+                f"{tag}: {v['frames_per_s']:.1f} frames/s in all, a rank "
+                f"{', '.join(f'{r['frames_per_s']:.1f}' for r in ranks)} ({MULTICARD_FRAMES} frames, chunk s "
+                f"{', '.join(f'{r['chunk_s']:.2f}' for r in ranks)}); launches in the chunk B1 "
+                f"{[r['b1'] for r in ranks]} B2 {[r['b2'] for r in ranks]} (once a step: {MULTICARD_FRAMES}); init s "
+                f"{', '.join(f'{r['init_s']:.1f}' for r in ranks)}, gather s {', '.join(f'{r['gather_s']:.4f}' for r in ranks)}; "
+                f"gathered vs one process bit-equal {v['fe_bit_equal']} (max |dp| {v['fe_max_dp']:.2e} m); "
+                f"graph K={v['K']} E={v['E']}: float32 sharded (20/60) {v['solve_s']:.2f}s gn_iters {v['gn_iters']} "
+                f"cost {v['cost_initial']:.6g} -> {v['cost_sharded']:.6g}, from the float64 optimum |dp| "
+                f"{v['max_dp32']:.2e} m |dq| {v['max_dq32']:.2e} rad (held to 2e-3, 1e-4; correction {v['correction_dp']:.2e} m "
+                f"{v['correction_dq']:.2e} rad); float64 sharded vs unsharded |dp| {v['max_dp64']:.2e} m |dq| "
+                f"{v['max_dq64']:.2e} rad (held to 1e-9), gn_iters {v['gn_iters64']}, sharded {v['solve64_s']:.1f}s, "
+                f"unsharded {v['single64_s']:.1f}s (rank {W - 1}); one-process check {v['one_process_s']:.1f}s (rank 0); "
+                f"ranks bit-equal {v['ranks_equal']}; "
+                f"wall {wall:.1f}s (streams written in {save_s:.1f}s)",
+                flush=True,
+            )
+            check(v["fe_bit_equal"] and v["fe_finite"], f"{tag}: gathered poses: {v}")
+            check(v["max_dp64"] <= 1e-9 and v["max_dq64"] <= 1e-9, f"{tag}: float64 sharded vs unsharded: {v}")
+            check(v["max_dp32"] <= 2e-3 and v["max_dq32"] <= 1e-4, f"{tag}: float32 vs the float64 optimum: {v}")
+            check(v["ranks_equal"], f"{tag}: the ranks' poses differ")
+            check(all(r["b1"] == r["b2"] == MULTICARD_FRAMES for r in ranks), f"{tag}: launches {ranks}")
+            check(not v["reference_modules_loaded"], f"{tag}: a rank loaded {v['reference_modules_loaded']}")
+            check(v["ok"], f"{tag} verdict: {v}")
+            launches[f"{backend} W={W} B={B}"] = dict(
+                track_solve=sum(r["b1"] for r in ranks), extract_lines=sum(r["b2"] for r in ranks)
+            )
+    if n_cards > 1:
+        check_other_card(dev)
+    else:
+        print("device guard: one card here, so a launch on cuda:1 from a thread whose current device is 0 was not shown",
+              flush=True)
+    return launches
+
+
+def check_other_card(dev):
+    """Kernels B2 and B1 launched once each on ``cuda:1`` from this thread,
+    whose current device stays ``dev``, against their plain versions on
+    the same inputs (each launch runs under its inputs' device): B2 on a
+    bench scan (lines aligned within 1 cm, as :func:`check_extract`), B1 on
+    the two-frame problem (:func:`_check_b1`'s bounds)."""
+    from liwslam_torch.ops import extract as ext
+    from liwslam_torch.ops import track_solve as ts
+
+    other = torch.device("cuda", 1)
+    check(torch.cuda.current_device() == dev.index, "device guard: this thread's current device moved")
+    prm = bench_params()
+    from liwslam_torch.frontend.driver import Frontend
+
+    frames, _ = Frontend(prm, device="cpu").pack_frames(_l_track_streams(prm)[1])
+    kw = dict(continuous_threshold=prm.line_continuous_threshold, min_len=prm.line_min_len, max_dis=prm.line_max_dis,
+              tolerance_angle_rad=prm.line_max_tolerance_angle_rad, max_lines=prm.max_lines)
+    f = frames[len(frames) // 2]
+    pts, ok = torch.as_tensor(f.points, device=other), torch.as_tensor(f.point_valid, device=other)
+    n2, n1 = ext.extract_lines_batched.launches, ts.lm_solve_track_batched.launches
+    outs = [fn(pts, ok, **kw) for fn in (ext.extract_lines, ext.extract_lines_plain)]
+    (la, lb) = (torch.cat([e1, e2], 1).cpu().numpy()[lv.cpu().numpy()] for e1, e2, lv, _ in outs)
+    _, miss, err2 = greedy_align(la, lb, 1e-2)
+    inp, frozen = b1_problem(prm, other)
+    err1 = _check_b1(inp, frozen, prm.solver_max_iterations, "on cuda:1")[0]
+    launched = (ext.extract_lines_batched.launches - n2, ts.lm_solve_track_batched.launches - n1)
+    print(
+        f"device guard: from a thread on cuda:{torch.cuda.current_device()}, B2 on cuda:1 {len(la)} lines against "
+        f"{len(lb)} ({miss} unmatched, max endpoint err {err2:.2e} m), B1 on cuda:1 max |x err| {err1:.2e}; "
+        f"launches B2 {launched[0]} B1 {launched[1]}",
+        flush=True,
+    )
+    check(launched == (1, 1), f"device guard: launches {launched}")
+    check(len(la) > 0 and miss <= 1 and err2 < 1e-2, f"device guard: B2 on cuda:1: {len(la)} / {len(lb)} lines, {miss} unmatched")
 
 
 def run_dynamic(prm, dev):
@@ -2567,7 +2699,7 @@ def main(argv):
     lap("kernel checks")
     launches, laser_ate, laser_res, laser_fps = run_main_path(prm, streams, dev)
     lap("main path")
-    ms_rows, ms_inputs = run_multiseq(prm, dev)
+    ms_rows, ms_inputs, ms_streams = run_multiseq(prm, dev)
     lap("multiseq")
     t0 = time.time()
     posthoc = run_backend_posthoc(prm, streams, laser_res, dev)
@@ -2589,6 +2721,9 @@ def main(argv):
     lap("distributed PCG")
     run_two_robots(dev)
     lap("two-robot pipeline")
+    multicard = run_multicard(ms_streams, dev)
+    del ms_streams
+    lap("multi-card composed flow")
     run_dynamic(prm, dev)
     lap("dynamic scene")
     cam_launches, captured = run_camera_path(cprm, streams, dev, laser_ate)
@@ -2615,6 +2750,8 @@ def main(argv):
             row = ms_rows[max(MULTISEQ_B)]
             r["launches_multiseq_b32"] = int(round(row["b1" if r["name"] == "track_solve" else "b2"] * MULTISEQ_TIMED * MULTISEQ_CHUNK))
             r.update(b32[r["name"]])
+            # the composed flow's chunk (run_multicard), over all its ranks
+            r["launches_multicard"] = {run: n[r["name"]] for run, n in multicard.items()}
         # the same numbers under the names PERF.md's kernel table uses
         r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
     print(json.dumps({"kernels": rows}), flush=True)

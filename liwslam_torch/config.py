@@ -196,6 +196,14 @@ class Params:
         return math.radians(self.line_max_tolerance_angle)
 
     @property
+    def grid_w(self) -> int:
+        return int(self.w_laser_each_scan / self.laser_resolution) + 1
+
+    @property
+    def grid_h(self) -> int:
+        return int(self.h_laser_each_scan / self.laser_resolution) + 1
+
+    @property
     def n_dist_bins(self) -> int:
         # des_i quick_des sizing: (100m / d_res + 1) bits (keyframe_manager.cpp:21-24)
         return int(100.0 / self.d_res + 1)
@@ -233,6 +241,17 @@ class Params:
                 v = tuple(float(x) for x in v)
             kw[k] = v
         return Params(**kw)
+
+    @staticmethod
+    def from_yaml(path: str) -> "Params":
+        """A Params from a YAML file keyed as ``config/params.yaml``
+        (PyYAML needed; unknown keys are ignored, as in ``from_dict``)."""
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError("liwslam_torch.config.Params.from_yaml needs PyYAML (import yaml failed)") from e
+        with open(path) as f:
+            return Params.from_dict(yaml.safe_load(f))
 
 
 # ---------------------------------------------------------------------------
@@ -372,3 +391,36 @@ PRESETS = {
     "cafe": cafe,
     "market": market,
 }
+
+
+# Capacities over the office preset used to size runs.  Bench widths:
+# bench.py's single-stream configuration (bench.py:96-105); tiny widths: the
+# reference entry's (__graft_entry__.py:16-27), for the entry contract and
+# the CPU tests.
+BENCH_WIDTHS = dict(
+    max_points=1152,
+    max_lines=64,
+    max_corners=16,
+    ref_capacity=1024,
+    max_imu_per_frame=32,
+    max_wheel_per_frame=8,
+    solver_max_iterations=8,
+    init_solver_max_iterations=25,
+)
+TINY_WIDTHS = dict(
+    max_points=256,
+    max_lines=16,
+    max_corners=8,
+    ref_capacity=128,
+    max_imu_per_frame=8,
+    max_wheel_per_frame=4,
+    solver_max_iterations=3,
+)
+
+
+def bench_params() -> Params:
+    return office().replace(**BENCH_WIDTHS)
+
+
+def tiny_params() -> Params:
+    return office().replace(**TINY_WIDTHS)

@@ -102,7 +102,7 @@ def make_cam_dyn_cfg(params, device="cpu") -> CamDynCfg:
         K=f32(K),
         K_inv=f32(np.linalg.inv(K)),
         T_imu_to_camera=f32(params.mat_T_imu_to_camera()),
-        sqrt_info=f32(fx / np.asarray(params.camera_sigma)),
+        sqrt_info=fac.camera_sqrt_info(params, device=device),
         feature_min_dis=f32(params.feature_min_dis),
         max_feature_num=torch.as_tensor(np.int32(params.max_feature_num), device=device),
         min_parallax=f32(params.cam_min_parallax),

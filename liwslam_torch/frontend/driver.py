@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from liwslam_torch import resolve_device
 from liwslam_torch.camera import features as ft
@@ -73,6 +74,10 @@ class FrontendResult:
     def T_w_imu(self):
         return geo.make_tf(torch.as_tensor(self.p), torch.as_tensor(self.q)).numpy()
 
+    def tum_poses(self, T_imu_to_wheel):
+        """Wheel/base-frame TUM poses (trajectory.cpp:549-559)."""
+        return self.T_w_imu() @ np.asarray(T_imu_to_wheel)
+
 
 def _pad(a, n, fill=0):
     a = np.asarray(a)
@@ -105,6 +110,20 @@ class Sequences(NamedTuple):
     stamps: list  # per sequence: (F_b,) frame stamps
     first: list  # per sequence: index of its first tracked frame
     n_common: int  # tracked frames every sequence has
+
+
+def concat_sequences(parts, device=None) -> Sequences:
+    """Several ``Sequences`` side by side, in order: their states
+    concatenated on ``device`` (by default the first part's), their frames,
+    stamps and first frames listed, ``n_common`` the least of theirs."""
+    dev = device if device is not None else parts[0].states.prior_J.device
+    return Sequences(
+        tree_map(lambda *xs: torch.cat([x.to(dev) for x in xs]), *[s.states for s in parts]),
+        [f for s in parts for f in s.frames],
+        [t for s in parts for t in s.stamps],
+        [k for s in parts for k in s.first],
+        min(s.n_common for s in parts),
+    )
 
 
 class PackedCam(NamedTuple):
@@ -638,16 +657,12 @@ class Frontend:
         length after the frame gate: ``n_common`` is the count of tracked
         frames they all have, each counted from its own first tracked
         frame."""
-        states, frames, stamps, first = [], [], [], []
+        parts = []
         for streams in streams_list:
             fr, lt = self.pack_frames(streams)
             track, k0, _, _, _ = self.initialize(fr, lt)
-            states.append(track)
-            frames.append(fr)
-            stamps.append(lt)
-            first.append(k0)
-        n_common = min(len(fr) - k0 for fr, k0 in zip(frames, first))
-        return Sequences(multiseq.stack_track_states(states), frames, stamps, first, n_common)
+            parts.append(Sequences(multiseq.stack_track_states([track]), [fr], [lt], [k0], len(fr) - k0))
+        return concat_sequences(parts)
 
     def stack_sequences(self, seqs: Sequences, j, n):
         """Tracked frames j .. j+n of every sequence (each from its own

@@ -170,12 +170,13 @@ def lm_solve_cam_batched(inp: CamSolveInputs, *, max_iters=10, ftol=3e-4, xtol=1
     dH = torch.empty((B, 15, 15), dtype=torch.float32, device=dev)
     dg = torch.empty((B, 15), dtype=torch.float32, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    err = _lib()(
-        *[tensors[k].data_ptr() for k in shapes],
-        B, F, Wc, int(max_iters), mask, float(ftol), float(xtol),
-        x.data_ptr(), world.data_ptr(), cost.data_ptr(), dH.data_ptr(), dg.data_ptr(),
-        iters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the calling thread's current device
+        err = _lib()(
+            *[tensors[k].data_ptr() for k in shapes],
+            B, F, Wc, int(max_iters), mask, float(ftol), float(xtol),
+            x.data_ptr(), world.data_ptr(), cost.data_ptr(), dH.data_ptr(), dg.data_ptr(),
+            iters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"cam_solve kernel launch failed: cudaError_t {err}")
     lm_solve_cam_batched.launches += 1

@@ -241,22 +241,23 @@ def _launch(points, valid, continuous_threshold, min_len, max_dis, tolerance_ang
     e2 = torch.empty((B, L, 2), dtype=torch.float32, device=dev)
     lv = torch.empty((B, L), dtype=torch.bool, device=dev)
     end_gap = torch.empty((B, L), dtype=torch.float32, device=dev)
-    err = fn(
-        points.data_ptr(),
-        valid.data_ptr(),
-        B,
-        N,
-        L,
-        float(continuous_threshold),
-        float(min_len),
-        float(max_dis),
-        float(tolerance_angle_rad),
-        e1.data_ptr(),
-        e2.data_ptr(),
-        lv.data_ptr(),
-        end_gap.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the calling thread's current device
+        err = fn(
+            points.data_ptr(),
+            valid.data_ptr(),
+            B,
+            N,
+            L,
+            float(continuous_threshold),
+            float(min_len),
+            float(max_dis),
+            float(tolerance_angle_rad),
+            e1.data_ptr(),
+            e2.data_ptr(),
+            lv.data_ptr(),
+            end_gap.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"extract_lines kernel launch failed: cudaError_t {err}")
     extract_lines_batched.launches += 1

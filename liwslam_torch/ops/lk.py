@@ -83,10 +83,11 @@ def lk_descent(pyr0, pyr1, pts, valid, gate, *, radius, iters):
     ok = torch.empty((T,), dtype=torch.bool, device=pts.device)
     if T == 0:
         return new_pts, ok
-    err = _lib()(
-        pyr, levels, pts.data_ptr(), valid.data_ptr(), gate.data_ptr(), T, int(radius), int(iters),
-        new_pts.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream,
-    )
+    with torch.cuda.device(pts.device):  # the launch goes to the calling thread's current device
+        err = _lib()(
+            pyr, levels, pts.data_ptr(), valid.data_ptr(), gate.data_ptr(), T, int(radius), int(iters),
+            new_pts.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"lk_track kernel launch failed: cudaError_t {err}")
     lk_descent.launches += 1

@@ -343,12 +343,13 @@ def _launch(inp: TrackSolveInputs, max_iters, ftol, xtol, early_exit, frozen_mas
     dH = torch.empty((B, 15, 15), dtype=torch.float32, device=dev)
     dg = torch.empty((B, 15), dtype=torch.float32, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    err = fn(
-        *[t.data_ptr() for t in inp],
-        B, M, int(max_iters), frozen_mask, int(bool(early_exit)), float(ftol), float(xtol),
-        x.data_ptr(), cost.data_ptr(), dH.data_ptr(), dg.data_ptr(), iters.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the calling thread's current device
+        err = fn(
+            *[t.data_ptr() for t in inp],
+            B, M, int(max_iters), frozen_mask, int(bool(early_exit)), float(ftol), float(xtol),
+            x.data_ptr(), cost.data_ptr(), dH.data_ptr(), dg.data_ptr(), iters.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"track_solve kernel launch failed: cudaError_t {err}")
     lm_solve_track_batched.launches += 1

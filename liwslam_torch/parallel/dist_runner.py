@@ -1,7 +1,8 @@
 """Multi-process runs of the edge-sharded pose-graph solve over
 ``torch.distributed``, and the verdict of each against one process.
 
-The port's twin of ``tools/dist_runner.py``, with its two modes:
+The port's twin of ``tools/dist_runner.py``, with its two modes, and of
+``__graft_entry__.dryrun_multichip``'s composed flow:
 
 - ``solve``: every rank builds the same ring graph (:func:`build_graph`),
   solves its slice of the edges with
@@ -13,7 +14,15 @@ The port's twin of ``tools/dist_runner.py``, with its two modes:
   loop; its graph goes out to every rank in two broadcasts (first its
   sizes, then its tensors), and all ranks solve it together, edge-sharded.
   ``--feed synthetic`` replaces the front ends by keyframes sampled from
-  the same two tracks with drift (no front end: the exchange alone).
+  the same two tracks with drift (no front end: the exchange alone);
+- ``composed``: B sequences (the bench track, seed 1 + b) split over the
+  ranks (``parallel/multiseq``'s dp mode): each rank simulates and
+  initializes its own B/W, steps them one chunk of F frames, and the
+  poses come together in one ``all_gather``; they seed a K = 1024 /
+  E = 4096 pose graph (:func:`composed_graph`) that all ranks solve
+  edge-sharded.  Rank 0 holds the gathered poses to one process's batched
+  run of all B, and the sharded solves to the unsharded float64 one (which
+  the last rank runs meanwhile).
 
 Usage::
 
@@ -22,6 +31,10 @@ Usage::
     python -m liwslam_torch.parallel.dist_runner --mode pipeline \\
         --num-processes 2 --backend gloo          # both ranks on cuda:0
     python -m liwslam_torch.parallel.dist_runner --backend nccl --num-processes 1
+    python -m liwslam_torch.parallel.dist_runner --mode composed \\
+        --widths bench --num-processes 4              # NCCL, a card a rank
+    python -m liwslam_torch.parallel.dist_runner --mode composed \\
+        --widths tiny --device cpu --num-processes 2  # gloo on the CPU
 
 Ranks meet at a file under a fresh temporary directory
 (``init_method="file://..."``), so concurrent runs never share a port.
@@ -36,6 +49,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import tempfile
@@ -44,6 +58,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._pytree import tree_map
 
 from liwslam_torch import config, resolve_device
 from liwslam_torch.backend import posegraph as pg
@@ -53,7 +68,7 @@ from liwslam_torch.parallel import posegraph_dist as pgd
 
 @dataclasses.dataclass
 class RunConfig:
-    mode: str = "solve"  # "solve" or "pipeline"
+    mode: str = "solve"  # "solve", "pipeline" or "composed"
     num_processes: int = 2
     device: str = "cuda"
     backend: str = "nccl"
@@ -63,7 +78,10 @@ class RunConfig:
     gn_iters: int = 30  # solve mode: the reference tool's iteration caps
     cg_iters: int = 40
     feed: str = "frontend"  # pipeline mode: "frontend" or "synthetic"
-    widths: str = "runner"  # pipeline mode: "runner" or "bench" (widths and rates)
+    widths: str = "runner"  # pipeline: "runner" or "bench"; composed: "bench" or "tiny" (widths and rates)
+    sequences: int = 0  # composed mode: B (0: 8 a rank)
+    frames: int = 32  # composed mode: F, the chunk's frames
+    streams: str = ""  # composed mode: a directory of streams simulated before (save_streams), else simulate
 
 
 KF_CAPACITY = 96  # keyframes a rank sends at most (the reference tool's)
@@ -199,8 +217,7 @@ def pipeline_params(widths="runner"):
         loop_max_dis=2.5,
     )
     if widths == "bench":
-        sizes = dict(max_points=1152, max_lines=64, max_corners=16, ref_capacity=1024, max_imu_per_frame=32,
-                     max_wheel_per_frame=8, solver_max_iterations=8, init_solver_max_iterations=25)
+        sizes = config.BENCH_WIDTHS
     else:
         sizes = dict(max_points=768, max_lines=48, max_corners=16, ref_capacity=384, max_imu_per_frame=32,
                      max_wheel_per_frame=8, solver_max_iterations=5, init_solver_max_iterations=20)
@@ -379,6 +396,245 @@ def _run_pipeline(cfg: RunConfig, rank, world, dev):
     return v
 
 
+# --------------------------------------------------------- composed mode ----
+
+PG_NODES, PG_EDGES = 1024, 4096  # the composed graph (__graft_entry__.py:126-171)
+SOLVE_ITERS = dict(gn_iters=20, cg_iters=60)  # the float32 solve's caps, as the manager calls it
+EXIT_ITERS = dict(gn_iters=200, cg_iters=200)  # the float64 solves, run to their own exit
+
+
+def composed_params(widths="bench"):
+    """bench.py's widths (``config.BENCH_WIDTHS``), or the reference
+    entry's small ones (``config.TINY_WIDTHS``) with an 8-iteration init
+    solve (the entry runs no init window; both sides of every comparison
+    start from the same init states)."""
+    if widths == "bench":
+        return config.bench_params()
+    return config.tiny_params().replace(init_solver_max_iterations=8)
+
+
+def composed_streams(seed, prm, widths="bench", **extra):
+    """Sequence ``seed - 1``'s streams: bench.py's office loop track at its
+    rates (1080 beams at 10 Hz, IMU 200 Hz, wheel 20 Hz, noise), or at the
+    small widths the L track at rates they hold (256 beams at 10 Hz, IMU
+    50 Hz, wheel 20 Hz: at most 8 IMU and 4 wheel samples a frame).
+    ``extra`` goes to ``sim.simulate`` (a camera's ``camera_hz`` and
+    ``camera_wh``; the camera draws its noise last, so the other streams
+    stay the same)."""
+    from liwslam_torch.sim import world as sim
+
+    if widths == "bench":
+        return sim.simulate(sim.default_track("loop"), sim.square_room(size=12.0, obstacles=True, rich=True), prm,
+                            imu_hz=200, wheel_hz=20, laser_hz=10, n_beams=1080, noise=True, seed=seed, **extra)
+    return sim.simulate(sim.default_track("L"), sim.square_room(obstacles=True), prm, imu_hz=50, wheel_hz=20,
+                        laser_hz=10, n_beams=256, noise=True, seed=seed, **extra)
+
+
+def save_streams(directory, seed, streams):
+    """Write one sequence's streams (every field of ``SimStreams``) as
+    ``<directory>/seed<seed>.npz``, where ``RunConfig.streams`` reads them."""
+    os.makedirs(directory, exist_ok=True)
+    arrays = {f.name: getattr(streams, f.name) for f in dataclasses.fields(streams)}
+    np.savez(os.path.join(directory, f"seed{seed}.npz"), **arrays)
+
+
+def _load_streams(directory, seed):
+    from liwslam_torch.sim import world as sim
+
+    with np.load(os.path.join(directory, f"seed{seed}.npz")) as z:
+        return sim.SimStreams(**{k: z[k] for k in z.files})
+
+
+def composed_graph(p, q, T_imu_to_wheel, K=PG_NODES, E=PG_EDGES, seed=0):
+    """The composed flow's pose graph (``__graft_entry__.py:126-171``), as
+    :func:`~liwslam_torch.backend.posegraph.graph_from_numpy`'s arguments.
+    The front ends' IMU-frame poses ``p``, ``q`` (B, F, 3), sequence after
+    sequence, seed the first min(B*F, K) of K nodes, laid flat (each wheel frame's
+    x, y and yaw kept, its height and tilt zeroed, so the ground rows agree
+    with the edges); the trajectory goes on from the last of them 0.25 m a
+    node along x with its yaw (the reference's zero rotation lays the wheel
+    frame on its side, where the ground rows fight the edges).  Edges: K - 1
+    sequential and K/2 loop edges (weight 10) between random nodes up to
+    K/4 apart, all measured from those poses, padded to E slots.  The solve
+    starts from the poses moved in their own frames by a seeded 2 cm in x
+    and y and 2 mrad of yaw (the first node fixed): the correction it has
+    to find."""
+    T_iw = np.asarray(T_imu_to_wheel, np.float64)
+    W = geo.make_tf(torch.as_tensor(np.asarray(p, np.float32).reshape(-1, 3)).double(),
+                    torch.as_tensor(np.asarray(q, np.float32).reshape(-1, 3)).double()).numpy()[:K] @ T_iw
+    n_fe = len(W)
+    x = np.concatenate([W[:, 0, 3], W[-1, 0, 3] + 0.25 * np.arange(1, K - n_fe + 1)])
+    y = np.concatenate([W[:, 1, 3], np.full(K - n_fe, W[-1, 1, 3])])
+    yaw = np.arctan2(W[:, 1, 0], W[:, 0, 0])
+    yaw = np.concatenate([yaw, np.full(K - n_fe, yaw[-1])])
+    flat = lambda x, y, yaw: geo.make_tf(torch.as_tensor(np.stack([x, y, 0 * x], -1)),
+                                         torch.as_tensor(np.stack([0 * yaw, 0 * yaw, yaw], -1))).numpy()
+    T = flat(x, y, yaw) @ np.linalg.inv(T_iw)
+    rng = np.random.default_rng(seed)
+    n_loop = min(E - (K - 1), K // 2)
+    a = rng.integers(0, K - 1, n_loop)
+    b = np.minimum(a + rng.integers(2, K // 4, n_loop), K - 1)
+    ei = np.concatenate([np.arange(K - 1), a])
+    ej = np.concatenate([np.arange(1, K), b])
+    n_e = len(ei)
+    etf = np.concatenate([np.linalg.inv(T[ei]) @ T[ej], np.tile(np.eye(4), (E - n_e, 1, 1))])
+    ew = np.concatenate([np.ones(K - 1), np.full(n_loop, 10.0), np.zeros(E - n_e)])
+    noise = np.random.default_rng(seed + 1)
+    dp = noise.normal(0, 0.02, (K, 3)) * [1.0, 1.0, 0.0]
+    dyaw = noise.normal(0, 2e-3, K)
+    dp[0], dyaw[0] = 0.0, 0.0
+    p0, q0 = (t.numpy() for t in geo.log_SE3(torch.as_tensor(T @ flat(dp[:, 0], dp[:, 1], dyaw))))
+    pad = lambda a: np.concatenate([a, np.zeros(E - n_e, a.dtype)])
+    return dict(p=p0, q=q0, n_nodes=K, e_i=pad(ei), e_j=pad(ej), e_tf=etf, e_weight=ew, n_edges=n_e)
+
+
+def pose_gap(a, b):
+    """(max |dp| m, largest rotation angle rad) between two PoseGraphs'
+    valid poses; the angle from the rotation matrices (2 sin(θ/2) =
+    |Ra - Rb|_F / √2)."""
+    K = a.n_nodes
+    pa, pb = a.p[:K].cpu().double(), b.p[:K].cpu().double()
+    Ra, Rb = (geo.make_tf(g.p[:K].cpu().double(), g.q[:K].cpu().double())[..., :3, :3] for g in (a, b))
+    ang = 2 * torch.asin(torch.clamp(torch.linalg.matrix_norm(Ra - Rb) / 8**0.5, max=1.0))
+    return float((pa - pb).abs().max()), float(ang.max())
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _front_ends(cfg, rank, world, dev, prm):
+    """This rank's sequences simulated (or loaded), initialized and stepped
+    one chunk; the poses gathered.  Returns (gathered {p, q} (B, F, 3),
+    the rank's numbers, its initial states and inputs on the host)."""
+    from liwslam_torch.frontend.driver import Frontend
+    from liwslam_torch.ops import extract as ext
+    from liwslam_torch.ops import track_solve as ts
+    from liwslam_torch.parallel import multiseq
+
+    B, F = cfg.sequences or 8 * world, cfg.frames
+    fe = Frontend(prm, device=dev)
+    run, shard = multiseq.batched_chunk_fn(fe.consts, fe.dcfg, fe.scfg, group=dist.group.WORLD)
+    seeds = shard([1 + b for b in range(B)])
+    t0 = time.perf_counter()
+    streams = [_load_streams(cfg.streams, s) if cfg.streams else composed_streams(s, prm, cfg.widths) for s in seeds]
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seqs = fe.init_sequences(streams)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    if seqs.n_common < F:
+        raise RuntimeError(f"composed: rank {rank}'s sequences have {seqs.n_common} common tracked frames < {F}")
+    states, inputs = seqs.states, fe.stack_sequences(seqs, 0, F)
+    host = tree_map(lambda t: t.cpu(), (states, inputs))
+    ext.extract_lines_batched.launches = ts.lm_solve_track_batched.launches = 0
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    _, out = run(states, inputs)
+    _sync(dev)
+    chunk_s = time.perf_counter() - t0
+    b1, b2 = ts.lm_solve_track_batched.launches, ext.extract_lines_batched.launches
+    t0 = time.perf_counter()
+    g = multiseq.gather_outputs(out, dist.group.WORLD)
+    _sync(dev)
+    gather_s = time.perf_counter() - t0
+    info = dict(
+        rank=rank, device=str(dev), seeds=seeds, sim_s=sim_s, init_s=init_s, chunk_s=chunk_s,
+        frames_per_s=len(seeds) * F / chunk_s, b1=b1, b2=b2, gather_s=gather_s,
+    )
+    return g, info, host
+
+
+def _one_process_check(hosts, gathered, dev, prm):
+    """One process's batched run of all B sequences (no group) from every
+    rank's initial states and inputs, against the gathered poses."""
+    from liwslam_torch.frontend.driver import Frontend
+    from liwslam_torch.parallel import multiseq
+
+    states, inputs = tree_map(lambda *xs: torch.cat(xs).to(dev), *hosts)
+    fe = Frontend(prm, device=dev)
+    _, ref = multiseq.batched_chunk_fn(fe.consts, fe.dcfg, fe.scfg)(states, inputs)
+    gp, gq = gathered["p"], gathered["q"]
+    return dict(
+        fe_bit_equal=bool(torch.equal(gp, ref.p) and torch.equal(gq, ref.q)),
+        fe_max_dp=float((gp - ref.p).abs().max()),
+        fe_finite=bool(torch.isfinite(gp).all() and torch.isfinite(gq).all()),
+    )
+
+
+def _run_composed(cfg: RunConfig, rank, world, dev):
+    prm = composed_params(cfg.widths)
+    gathered, info, host = _front_ends(cfg, rank, world, dev, prm)
+    infos = [None] * world
+    dist.all_gather_object(infos, info)
+    hosts = [None] * world
+    dist.all_gather_object(hosts, host)
+    # the gathered poses seed the graph, the same on every rank
+    gr = composed_graph(gathered["p"].cpu().numpy(), gathered["q"].cpu().numpy(), prm.mat_T_imu_to_wheel())
+    g = pg.graph_from_numpy(**gr, device=dev)
+    c = pg.make_pg_consts(prm, dev)
+    g64, c64 = to_dtype(g, c, torch.float64)
+    K = g.n_nodes
+    # the two checks that need one rank, side by side where there are two:
+    # rank 0 reruns all B front ends in one process, the last rank solves the
+    # float64 graph unsharded (the optimum the sharded solves are held to)
+    # and broadcasts its poses, cost and seconds
+    fe_v = {}
+    if rank == 0:
+        t0 = time.perf_counter()
+        fe_v = _one_process_check(hosts, gathered, dev, prm)
+        fe_v["one_process_s"] = time.perf_counter() - t0
+    single = torch.empty(6 * K + 2, dtype=torch.float64, device=dev)
+    if rank == world - 1:
+        t0 = time.perf_counter()
+        gu, cost_u = pg.solve_pcg(g64, c64, **EXIT_ITERS)
+        cost_u = float(cost_u)
+        tail = torch.tensor([cost_u, time.perf_counter() - t0], dtype=torch.float64, device=dev)
+        single = torch.cat([gu.p[:K].reshape(-1), gu.q[:K].reshape(-1), tail])
+    dist.broadcast(single, world - 1)
+    st32 = {}
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    g32, cost32 = pgd.solve_pcg_sharded(pgd.shard_edges(g, rank, world), c, **SOLVE_ITERS, stats=st32)
+    p32 = g32.p.cpu()
+    solve_s = time.perf_counter() - t0
+    eq32 = _gathered_equal(torch.cat([g32.p, g32.q], 1))
+    st64 = {}
+    t0 = time.perf_counter()
+    gs64, cost_s64 = pgd.solve_pcg_sharded(pgd.shard_edges(g64, rank, world), c64, **EXIT_ITERS, stats=st64)
+    cost_s64 = float(cost_s64)
+    solve64_s = time.perf_counter() - t0
+    eq64 = _gathered_equal(torch.cat([gs64.p, gs64.q], 1))
+    if rank != 0:
+        return None
+    gu64 = g64._replace(p=single[: 3 * K].view(K, 3), q=single[3 * K : 6 * K].view(K, 3))
+    cost_u64, single64_s = single[6 * K :].tolist()
+    dp64, dq64 = pose_gap(gs64, gu64)
+    dp32, dq32 = pose_gap(g32, gu64)
+    corr_p, corr_q = pose_gap(g, gu64)
+    B, F = gathered["p"].shape[:2]
+    chunk_s = max(i["chunk_s"] for i in infos)
+    v = dict(
+        mode="composed", n_processes=world, widths=cfg.widths, B=B, F=F, ranks=infos,
+        frames_per_s=B * F / chunk_s, **fe_v,
+        K=K, E=g.n_edges, cost_initial=graph_cost(g, c), cost_sharded=float(cost32),
+        gn_iters=st32["gn_iters"], cg_iters=st32.get("cg_iters", 0), reductions=st32["reductions"], solve_s=solve_s,
+        cost_sharded64=cost_s64, cost_single64=cost_u64, gn_iters64=st64["gn_iters"], solve64_s=solve64_s,
+        single64_s=single64_s, correction_dp=corr_p, correction_dq=corr_q, max_dp64=dp64, max_dq64=dq64,
+        max_dp32=dp32, max_dq32=dq32, ranks_equal=bool(eq32 and eq64),
+        gathered_p=gathered["p"].cpu().numpy().tolist(), gathered_q=gathered["q"].cpu().numpy().tolist(),
+        p_multi=p32[:K].numpy().tolist(),
+    )
+    v["ok"] = bool(
+        v["fe_bit_equal"] and v["fe_finite"] and v["ranks_equal"] and dp64 <= 1e-9 and dq64 <= 1e-9
+        and dp32 <= 2e-3 and dq32 <= 1e-4 and math.isfinite(v["cost_sharded"])
+    )
+    return v
+
+
 # ---------------------------------------------------------------- launch ----
 
 
@@ -391,14 +647,14 @@ def _worker(rank, cfg: RunConfig, tmp):
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    else:
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * cfg.num_processes)))
+    # the ranks share the host's cores (their host math, on the card too)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * cfg.num_processes)))
     dist.init_process_group(
         cfg.backend, init_method=f"file://{os.path.join(tmp, 'rdv')}", world_size=cfg.num_processes, rank=rank
     )
     try:
-        run = _run_solve if cfg.mode == "solve" else _run_pipeline
+        run = dict(solve=_run_solve, pipeline=_run_pipeline, composed=_run_composed)[cfg.mode]
         v = run(cfg, rank, cfg.num_processes, dev)
         # what each rank imported: the port imports nothing of the reference
         loaded = [None] * cfg.num_processes
@@ -411,13 +667,15 @@ def _worker(rank, cfg: RunConfig, tmp):
         dist.barrier()
     finally:
         dist.destroy_process_group()
+        torch.set_num_threads(threads)
 
 
 def launch(cfg: RunConfig) -> dict:
     """Spawn ``cfg.num_processes`` ranks and return rank 0's verdict.  The
     device is resolved first (CUDA unless ``cfg.device`` is "cpu"; raises
     when CUDA is missing, and NCCL needs a device for each rank), and the kernels are built here, before the
-    spawn, so that the ranks only load them."""
+    spawn, so that the ranks only load them.  A world of one runs in this
+    process (its check of the modules loaded then covers the caller's)."""
     import torch.multiprocessing as mp
 
     dev = resolve_device(cfg.device)
@@ -426,34 +684,47 @@ def launch(cfg: RunConfig) -> dict:
             f"dist_runner: NCCL takes one CUDA device a rank: {cfg.num_processes} ranks, "
             f"{torch.cuda.device_count()} devices; use --backend gloo or fewer --num-processes"
         )
-    if dev.type == "cuda" and cfg.mode == "pipeline" and cfg.feed == "frontend":
+    if cfg.mode == "composed" and cfg.sequences % cfg.num_processes:
+        raise ValueError(f"dist_runner: {cfg.sequences} sequences do not split evenly over {cfg.num_processes} ranks")
+    widths = ("bench", "tiny") if cfg.mode == "composed" else ("runner", "bench")
+    if cfg.mode != "solve" and cfg.widths not in widths:
+        raise ValueError(f"dist_runner: --mode {cfg.mode} takes --widths {' or '.join(widths)}, not {cfg.widths}")
+    if dev.type == "cuda" and (cfg.mode == "composed" or cfg.mode == "pipeline" and cfg.feed == "frontend"):
         from liwslam_torch.ops import _build
 
         _build.load()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_worker, args=(cfg, tmp), nprocs=cfg.num_processes, join=True)
+        if cfg.num_processes == 1:
+            _worker(0, cfg, tmp)  # a world of one runs in this process
+        else:
+            mp.spawn(_worker, args=(cfg, tmp), nprocs=cfg.num_processes, join=True)
         with open(os.path.join(tmp, "verdict.json")) as fh:
             return json.load(fh)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--mode", choices=("solve", "pipeline"), default="solve")
+    ap.add_argument("--mode", choices=("solve", "pipeline", "composed"), default="solve")
     ap.add_argument("--num-processes", type=int, default=2)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None, help="default: nccl on cuda, gloo on cpu")
     ap.add_argument("--nodes", type=int, default=64)
     ap.add_argument("--edges", type=int, default=128)
     ap.add_argument("--feed", choices=("frontend", "synthetic"), default="frontend")
-    ap.add_argument("--widths", choices=("runner", "bench"), default="runner")
+    ap.add_argument("--widths", choices=("runner", "bench", "tiny"), default=None,
+                    help="pipeline: runner (default) or bench; composed: bench (default) or tiny")
+    ap.add_argument("--sequences", type=int, default=0, help="composed: B sequences (default 8 a rank)")
+    ap.add_argument("--frames", type=int, default=32, help="composed: F frames in the chunk")
     a = ap.parse_args(argv)
     backend = a.backend or ("nccl" if a.device == "cuda" else "gloo")
+    widths = a.widths or ("bench" if a.mode == "composed" else "runner")
     cfg = RunConfig(
-        mode=a.mode, num_processes=a.num_processes, device=a.device, backend=backend,
-        nodes=a.nodes, edges=a.edges, feed=a.feed, widths=a.widths,
+        mode=a.mode, num_processes=a.num_processes, device=a.device, backend=backend, nodes=a.nodes,
+        edges=a.edges, feed=a.feed, widths=widths, sequences=a.sequences, frames=a.frames,
     )
     v = launch(cfg)
-    v.pop("p_multi", None)
+    for k in ("p_multi", "gathered_p", "gathered_q"):
+        v.pop(k, None)
     print(json.dumps(v), flush=True)
     return 0 if v["ok"] else 1
 

@@ -227,6 +227,13 @@ def camera_residual(p, q, world_point, cam_point_xy, T_imu_to_camera, sqrt_info)
     return sqrt_info * (cam_point_xy - cam[..., :2] / z)
 
 
+def camera_sqrt_info(params, dtype=torch.float32, device="cpu"):
+    """camera_noise (camera_factor.h:18-27): sigma normalized by fx."""
+    fx = params.mat_camera_K()[0, 0]
+    s = np.asarray(params.camera_sigma) / fx
+    return torch.as_tensor(1.0 / s, dtype=dtype, device=device)
+
+
 # --- pose-graph factors (back end) -------------------------------------------
 
 

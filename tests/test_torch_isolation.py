@@ -84,6 +84,19 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Frontend(cam)
     assert Frontend(cam, device="cpu").cdyn.K.device.type == "cpu"
+    # the entry module and the composed multi-device flow
+    from liwslam_torch import entry
+    from liwslam_torch.parallel import dist_runner as dr
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dr.launch(dr.RunConfig(mode="composed", num_processes=1, widths="bench"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.dryrun_multichip(1)
+    fn, args = entry.entry("cpu")
+    _, out = fn(*args)
+    assert out.p.device.type == "cpu" and torch.isfinite(out.p).all()
     # a wrapper takes its plain version only for CPU tensors; anything else
     # that is not a CUDA float32 tensor is refused, not computed
     pts = torch.zeros((8, 3), dtype=torch.float64, device="meta")

@@ -266,6 +266,7 @@ def test_m1_schur_loss_is_shared_with_the_reference(seed):
     import chip_smoke
     from liwslam import config as jconfig
     from liwslam.ops import track_solve as jts
+    from liwslam_torch import config as tconfig
 
     prm, inp, x0, data, free, frozen = _m1_case(seed)
     mi = prm.solver_max_iterations
@@ -273,7 +274,7 @@ def test_m1_schur_loss_is_shared_with_the_reference(seed):
     dH64 = chip_smoke.schur_float64(inp, x)[0][0].numpy()
     port_gap = chip_smoke.schur_gap(dH[0].double().numpy(), dH64)
 
-    jc = jfac.make_consts(jconfig.office().replace(**chip_smoke.BENCH_OVERRIDES))
+    jc = jfac.make_consts(jconfig.office().replace(**tconfig.BENCH_WIDTHS))
     jd = jfac.FactorData(*[jnp.asarray(v) for v in data])
     xr, _, dHr, _ = jts.lm_solve_track(
         jnp.asarray(x0), jnp.asarray(free), jd, jc, max_iters=mi, interpret=True, frozen_dims=frozen

@@ -85,6 +85,7 @@ def load(path):
     import chip_smoke as cs
     from liwslam import config as jconfig
     from liwslam.backend.manager import KeyframeManager as JManager
+    from liwslam_torch import config as tconfig
     from liwslam_torch import convert
     from liwslam_torch.backend.manager import KeyframeManager as TManager
     from liwslam_torch.core import geometry as geo
@@ -92,7 +93,7 @@ def load(path):
 
     torch.set_num_threads(4)
     z = dict(np.load(path))
-    jprm = jconfig.office().replace(**cs.BENCH_OVERRIDES)
+    jprm = jconfig.office().replace(**tconfig.BENCH_WIDTHS)
     tprm = convert.params_from_reference(dataclasses.asdict(jprm))
     assert tprm == cs.bench_params(), "the reference's bench parameters differ from the port's"
     streams = cs.bench_streams(tprm)

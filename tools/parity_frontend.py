@@ -202,10 +202,11 @@ def main(argv):
     import torch
 
     from liwslam import config as jconfig
+    from liwslam_torch import config as tconfig
     from liwslam_torch import convert
 
     torch.set_num_threads(4)
-    jprm = jconfig.office().replace(**cs.BENCH_OVERRIDES)
+    jprm = jconfig.office().replace(**tconfig.BENCH_WIDTHS)
     tprm = convert.params_from_reference(dataclasses.asdict(jprm))
     assert tprm == cs.bench_params(), "the reference's bench parameters differ from the port's"
     streams = cs.bench_streams(tprm, seed=args.seed)

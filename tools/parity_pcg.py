@@ -78,6 +78,7 @@ def main(argv):
     import chip_smoke as cs
     from liwslam import config as jconfig
     from liwslam.backend import posegraph as jpg
+    from liwslam_torch import config as tconfig
     from liwslam_torch.backend import posegraph as pg
 
     torch.set_num_threads(4)
@@ -88,7 +89,7 @@ def main(argv):
 
     prm = cs.bench_params()
     c = pg.make_pg_consts(prm, "cpu")
-    jc = jpg.make_pg_consts(jconfig.office().replace(**cs.BENCH_OVERRIDES))
+    jc = jpg.make_pg_consts(jconfig.office().replace(**tconfig.BENCH_WIDTHS))
     jsolve = jax.jit(lambda g, n: jpg.solve_pcg(g, jc, gn_iters=n, cg_iters=60))
 
     def to_jax(g):

@@ -37,7 +37,6 @@ from liwslam_torch.backend import manager as tkm
 from liwslam_torch.utils import checkpoint as tckpt
 from tests.test_backend import _drifting_square, make_constellation, prm_small, se2
 from tests.test_backend_device import corner_soup
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 NP = 5  # probes, as the manager's loop_probe_count
 

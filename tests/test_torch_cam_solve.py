@@ -30,7 +30,6 @@ from liwslam_torch.ops import track_solve as ts
 from liwslam_torch.solve import factors as tfac
 from tests.test_cam_solve import _camera_problem
 from tests.test_solver import CONSTS
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 MAX_ITERS = 12
 _t = lambda a: torch.as_tensor(np.array(a))

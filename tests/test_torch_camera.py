@@ -29,7 +29,6 @@ from liwslam_torch.ops import cam_solve, lk
 from liwslam_torch.solve import factors as tfac
 from tests.test_camera import blob_image
 from tests.test_lk_kernel import _shifted, _textured
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 T = lambda a: torch.as_tensor(np.array(a))
 

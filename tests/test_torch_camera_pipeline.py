@@ -47,7 +47,6 @@ from liwslam_torch.frontend import matching as tmm
 from liwslam_torch.frontend.driver import Frontend as TFrontend
 from liwslam_torch.sim import world as tsim
 from tests.test_camera_e2e import H_PX, W_PX, cam_params
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SIM = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, camera_hz=10.0, camera_wh=(W_PX, H_PX), noise=False, seed=0)
 T_END_US = 6_100_000

@@ -12,7 +12,6 @@ import torch
 
 from liwslam.core import geometry as jgeo
 from liwslam_torch.core import geometry as tgeo
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

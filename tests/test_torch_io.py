@@ -16,7 +16,6 @@ import pytest
 from liwslam_torch import config, run
 from liwslam_torch.io import openloris, tum
 from liwslam_torch.sim import world as sim
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(
     max_points=384, max_lines=48, max_corners=16, ref_capacity=384, max_imu_per_frame=32,

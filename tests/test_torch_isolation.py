@@ -21,7 +21,6 @@ from liwslam.sim import world as jsim
 from liwslam_torch import config as tconfig
 from liwslam_torch.eval import metrics as tmetrics
 from liwslam_torch.sim import world as tsim
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (

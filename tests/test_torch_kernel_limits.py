@@ -13,7 +13,6 @@ from liwslam_torch.ops import cam_solve as cs
 from liwslam_torch.ops import extract as ext
 from liwslam_torch.ops import lk
 from liwslam_torch.ops import track_solve as ts
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "liwslam_torch" / "csrc"
 

@@ -20,7 +20,6 @@ from liwslam.sim import world as sim
 from liwslam_torch.frontend import matching as tmm
 from liwslam_torch.frontend import scan as tscan
 from tests.test_extract_pallas import _kw
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 PRM = config.office().replace(max_points=512, max_lines=48, max_corners=16, ref_capacity=256)
 

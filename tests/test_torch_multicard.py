@@ -53,7 +53,6 @@ from liwslam_torch import entry as tentry
 from liwslam_torch.frontend.driver import Frontend as TFrontend
 from liwslam_torch.parallel import dist_runner as dr
 from liwslam_torch.parallel import multiseq
-from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_multiseq import _to_reference
 
 B, F, W = 4, 8, 2

@@ -51,7 +51,6 @@ from liwslam_torch.parallel import multiseq
 from liwslam_torch.sim import world as tsim
 from liwslam_torch.solve import gn
 from tests.test_frontend_e2e import small_params
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SIM = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, noise=True)
 SEEDS = (1, 2, 3)

@@ -28,7 +28,6 @@ from liwslam_torch.frontend.driver import Frontend
 from liwslam_torch.io import tum
 from liwslam_torch.online import OnlineRunner
 from liwslam_torch.utils import checkpoint as ckpt
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 ARGS = [
     "--preset", "office", "--synthetic", "L", "--chunk", "8", "--laser-hz", "4", "--beams", "540",

@@ -26,7 +26,6 @@ from liwslam_torch import config as tconfig
 from liwslam_torch.backend import posegraph as tpg
 from liwslam_torch.parallel import dist_runner as dr
 from liwslam_torch.parallel import posegraph_dist as tpgd
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 K, E = 32, 64
 

@@ -36,7 +36,6 @@ from liwslam_torch.frontend import pipeline as tpl
 from liwslam_torch.frontend.driver import Frontend as TFrontend
 from liwslam_torch.sim import world as tsim
 from tests.test_frontend_e2e import small_params
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 SIM = dict(imu_hz=100, wheel_hz=20, laser_hz=5, n_beams=360, seed=0)
 N_STEPS = 8

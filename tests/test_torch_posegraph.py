@@ -26,7 +26,6 @@ from liwslam_torch import convert
 from liwslam_torch.backend import posegraph as tpg
 from tests.test_backend import prm_small
 from tests.test_parallel import _build_square_graph
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 def _carry(g):

@@ -16,7 +16,6 @@ from liwslam.frontend import preintegration as jpre
 from liwslam.ops import preint_parallel as jpp
 from liwslam_torch import config as tcfg
 from liwslam_torch.frontend import preintegration as tpre
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-4
 

@@ -21,7 +21,6 @@ from liwslam.frontend import scan as jscan
 from liwslam.sim import world as sim
 from liwslam_torch.frontend import scan as tscan
 from tests.test_extract_pallas import _greedy_align, _kw
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,7 +30,6 @@ from liwslam_torch.solve import factors as tfac
 from liwslam_torch.solve import gn as tgn
 from tests.test_solver import CONSTS
 from tests.test_track_solve import reference_solution, tracking_problem
-from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,16 +62,24 @@ def _res_fns(d, W=2):
     return jres, tres
 
 
+@jax.jit
+def _linearize(x, d):
+    """The reference residual (window of 2) and its Jacobian at x, the
+    factor data an argument: every problem of the module shares one
+    compile, where op-by-op dispatch would compile each operation."""
+    f = lambda y: jfac.stack_residuals(jfac.WindowState.from_flat(y, 2), d, CONSTS)
+    return f(x), jax.jacfwd(f)(x)
+
+
 @pytest.mark.parametrize("with_prior", [True, False])
 def test_stack_residuals_and_jacobian(with_prior):
     d, x0, free, _ = _problem(with_prior)
-    jres, tres = _res_fns(d)
+    _, tres = _res_fns(d)
     xt = torch.as_tensor(np.array(x0))
-    r_ref = np.asarray(jres(x0))
+    r_ref, Jj = (np.asarray(a) for a in _linearize(x0, d))
     np.testing.assert_allclose(tres(xt).numpy(), r_ref, rtol=2e-4, atol=3e-4)
     r, J = tgn.linearize(tres, xt)
     assert J.dtype == torch.float32 and J.shape == (r.shape[0], 30)
-    Jj = np.asarray(jax.jit(jax.jacfwd(jres))(x0))
     # a ground tilt row at a tilt below 1e-4 rad sits at the kink of
     # |z_axis x e_z|: its direction, and so its Jacobian, is float32 noise in
     # both packages (frame 0 of this problem is level to 2e-7 rad)
@@ -134,9 +141,7 @@ def test_marginalize_and_sqrt_prior():
 
 def _schur_at(d, x):
     """(dH, dg) of the reference residual linearized at x, in float64."""
-    jres, _ = _res_fns(d)
-    xj = jnp.asarray(x, jnp.float32)
-    r, J = np.asarray(jres(xj), np.float64), np.asarray(jax.jit(jax.jacfwd(jres))(xj), np.float64)
+    r, J = (np.asarray(a, np.float64) for a in _linearize(jnp.asarray(x, jnp.float32), d))
     H, g = J.T @ J, -(J.T @ r)
     sol = np.linalg.solve(H[:15, :15] + 1e-8 * np.eye(15), np.concatenate([H[:15, 15:], g[:15, None]], 1))
     dH = H[15:, 15:] - H[15:, :15] @ sol[:, :15]
@@ -152,7 +157,7 @@ def test_track_solve_plain_matches_reference(with_prior):
     inp = tts.pack_inputs(tx0, tfree, td, tconsts)
     # the kernel's flat residual equals the factor stack minus the
     # always-zero frame-0 IMU / wheel rows, laser rows blocked by endpoint
-    r_ref = np.asarray(jfac.stack_residuals(jfac.WindowState.from_flat(x0, 2), d, CONSTS))
+    r_ref = np.asarray(_linearize(x0, d)[0])
     M = d.laser_l1p1.shape[0]
     o = 36 + 2 * M
     want = np.concatenate([r_ref[15:30], r_ref[33:36], r_ref[36:o].reshape(M, 2).T.reshape(-1), r_ref[o:]])
